@@ -15,19 +15,38 @@ the script exits non-zero:
   5. one fp32 UNet forward (B=8) of the committed 300k Darcy checkpoint on
      the card (kernels) against the same forward on the CPU (plain
      versions).
-  6. the main path: ``sample_eval`` at full width, 64 samples, 100 steps,
-     fp32, seed 0. The launch counts are zeroed just before and read just
-     after; each kernel must have run once per UNet call (K1 8x, K2 38x per
-     step), and the residual median must lie in [6.8e-3, 2.7e-2], 0.5x to 2x
-     the JAX package's fp32 evaluation of the same checkpoint (1.351e-2).
-The last three lines are a JSON object with each kernel's launches, error
-and times, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
-Exits 2 without a result where torch.cuda.is_available() is false.
+  6. the sampling path: ``sample_eval`` at full width, 64 samples, 100
+     steps, fp32, seed 0. The launch counts are zeroed just before and read
+     just after; each kernel must have run once per UNet call (K1 8x, K2 38x
+     per step), and the residual median must lie in [6.8e-3, 2.7e-2], 0.5x to
+     2x the JAX package's fp32 evaluation of the same checkpoint (1.351e-2).
+  7. K1's backward kernel against torch autograd through the plain version,
+     every path shape and two ragged ones at B=4 and B=64 (each gradient
+     within GRAD_TOL of the largest entry of its tensor), timed at B=64.
+  8. K2's backward kernel the same way, with and without FiLM.
+  9. the training path: (a) a Darcy set from the port's generator (256
+     train, 64 valid); (b) one train step at B=8 from the 300k EMA weights,
+     card (kernels) against CPU (plain versions); (c) the loss of the 300k
+     EMA weights over 8 validation batches of 64, inside EMA_LOSS_BAND, its
+     data part inside EMA_DATA_LOSS_BAND and its mean |residual| inside
+     EMA_RESIDUAL_BAND; (d)
+     200 steps at B=64, full width, fp32, fresh Adam, with the launch counts
+     zeroed just before and read just after (K1 and K2 forward and backward
+     once per UNet call: 8 and 38 per step), finite losses and a mean of the
+     last 50 below LAST50_MAX; (e) a checkpoint save and restore (EMA
+     weights back bit for bit, and their forward under cuDNN's
+     deterministic algorithms bit-equal to the saved weights'); (f) the
+     training CLI for 3 steps, and ``sample_eval`` of its checkpoint.
+The last three lines are a JSON object with each kernel's launches (counted
+on the training path), error and times, the nvidia-smi line, and
+``{"ok": true, "device": {...}}``. Exits 2 without a result where
+torch.cuda.is_available() is false.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -60,6 +79,32 @@ K2_CALLS = ([(n, c, film) for n, c in K1_CALLS[:4] + [(64, 256)] + K1_CALLS[4:]
             + [(4096, 32, False)] * 2)
 RESIDUAL_RANGE = (6.8e-3, 2.7e-2)
 SAMPLES, STEPS = 64, 100
+# backward kernel vs torch autograd through the plain version, fp32: each
+# gradient tensor within GRAD_TOL x its largest entry (the token and batch
+# sums run in another order: split reductions, tiled products)
+GRAD_TOL = 1e-4
+# one train step, card vs CPU: the loss to STEP_LOSS_RTOL relative and each
+# parameter's gradient to STEP_GRAD_TOL x its largest entry (fp32 on both;
+# the card's kernels and cuDNN's backward sum in another order than the CPU)
+STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-5, 1e-3
+# the loss of the 300k EMA weights on this script's validation set: 0.5x-2x
+# the JAX package's own fp32 loss of the same weights on the same set, 8
+# batches of 64 on the CPU (`JAX_PLATFORMS=cpu python
+# tests/test_torch_ema_loss.py`: loss 0.019174, mean |residual| 0.030962;
+# PERF.md). The JAX run's logged loss_test (0.0475 over its last 20k
+# iterations) is no yardstick for fp32: on the TPU its residual_mean_abs_test
+# was 0.217, and that residual term made up half its loss. Its data part
+# carries over: the data loss must lie within 0.5x-2x the run's mean
+# loss_data_test over its last 20k iterations (0.0189,
+# results/darcy_300k_fp32head/metrics.csv). The residual term is ~2% of the
+# loss, so the mean |residual| has a band of its own, 0.5x-2x the JAX fp32
+# reading.
+EMA_LOSS_BAND, EMA_DATA_LOSS_BAND = (0.0096, 0.0383), (0.0094, 0.0378)
+EMA_RESIDUAL_BAND = (0.0155, 0.0619)
+# 200 steps from those weights: the mean of the last 50 losses below 3x the
+# JAX run's mean training loss over its last 20k iterations (0.037)
+TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 200, 64, 0.11
+N_TRAIN, N_VALID = 256, 64
 
 
 def phase(name: str):
@@ -128,6 +173,26 @@ def k2_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
     return nbytes, 10.0 * b * n * c
 
 
+def k1_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
+    """Bytes (x and dy read, dx written, weights read and their gradients
+    written, the forward's M and stats read) and matmul flops of K1's VJP:
+    the qkv projection again, dP = M dy, dM = P^T dy, dxln and dW_qkv, the
+    k/v path within the heads, and dctx and dW_out per row."""
+    nbytes = 4 * (3 * b * n * c + 2 * (4 * h * c + 2 * c) + b * h * c
+                  + b * 8 * (dh * dh + 2 * dh))
+    flops = (2 * b * n * (3 * h * c + h * c + h * c + 3 * h * c + 3 * h * c + 2 * h * dh)
+             + 2 * b * 2 * h * dh * c)
+    return nbytes, flops
+
+
+def k2_bwd_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
+    """Bytes (x and dy read, dx written, parameters read and their gradients
+    written) and ~25 flops an element (x-hat, z, the SiLU derivative, the
+    sums S0 and S1, and dx)."""
+    nbytes = 4 * (3 * b * n * c + 4 * c + (4 * b * c if film else 0))
+    return nbytes, 25.0 * b * n * c
+
+
 def k1_term(args, ref) -> float:
     """max |LA(LN(x))| of the plain output ``ref`` = x + b_out + LA; fails
     when the term is too small for the comparison to see it."""
@@ -181,6 +246,222 @@ def check_kernel(name, kernel, plain, make_args, shapes_b4, path_calls, work, pa
             "bound_by": bound_ms(nbytes, flops)[1], "library_ms": None}
 
 
+def grads_of(fn, args, dy):
+    """The gradients of <fn(*args), dy> with respect to every tensor argument."""
+    import torch
+
+    leaves = [None if a is None else a.detach().requires_grad_(True) for a in args]
+    return torch.autograd.grad(fn(*leaves), [a for a in leaves if a is not None], dy)
+
+
+def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls, work):
+    """Hold the backward kernel, reached through autograd on ``kernel``,
+    against torch autograd through ``plain`` at B=4 and B=64 for each shape.
+    At B=64 time the backward kernel alone (``bwd(dy, *save(*args))``, the
+    forward's saved tensors made once) beside the plain version's backward
+    (its forward and backward, less its forward). Returns the entry."""
+    import torch
+
+    max_err, per_call = 0.0, {}
+    for b in (4, 64):
+        for shape in shapes:
+            args = make_args(b, *shape)
+            dy = torch.randn(args[0].shape, device=args[0].device)
+            worst = 0.0
+            for i, (g, r) in enumerate(zip(grads_of(kernel, args, dy), grads_of(plain, args, dy))):
+                scale, err = r.abs().max().item(), (g - r).abs().max().item()
+                if not torch.isfinite(g).all() or err > GRAD_TOL * scale:
+                    raise AssertionError(f"{name} B={b} {shape} gradient {i}: max |diff| "
+                                         f"{err:.3e} > {GRAD_TOL} x max |g| {scale:.3e}")
+                max_err, worst = max(max_err, err), max(worst, err / max(scale, 1e-30))
+            print(f"  {name} B={b} {shape}: max |diff| / max |g| {worst:.2e}", flush=True)
+            if b == 64 and shape in path_calls:
+                saved = save(*args)
+                plain_ms = (cuda_ms(lambda: grads_of(plain, args, dy), reps=5)
+                            - cuda_ms(lambda: plain(*args), reps=5))
+                b_ms, b_by = bound_ms(*work(b, *shape))
+                per_call[shape] = {"ms": cuda_ms(lambda: bwd(dy, *saved), reps=5),
+                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                print(f"  {name} B=64 {shape}: " + json.dumps(per_call[shape]), flush=True)
+                del saved
+            del args, dy
+    # the entry covers one UNet backward's calls: times and bounds summed
+    totals = {k: sum(per_call[call][k] for call in path_calls)
+              for k in ("ms", "plain_ms", "bound_ms")}
+    nbytes, flops = (sum(w) for w in zip(*(work(64, *call) for call in path_calls)))
+    return {"name": name, "max_abs_err": max_err, **totals,
+            "bound_by": bound_ms(nbytes, flops)[1], "library_ms": None}
+
+
+def train_phase(dev, smi: str) -> tuple[int, int, int, int]:
+    """Phase 9, in a temporary directory that is removed afterwards. Returns
+    the launch counts of the 200-step run: K1 forward, K1 backward, K2
+    forward, K2 backward."""
+    with tempfile.TemporaryDirectory(prefix="pidm_smoke_") as tmp:
+        return _train_phase(Path(tmp), dev, smi)
+
+
+def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.darcy_generator import generate_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
+    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+        linear_attention_block)
+    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
+        restore_train_state, save_checkpoint)
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer, resident_train_step)
+
+    ph = phase("9a Darcy data (port generator)")
+    workers = min(8, os.cpu_count() or 1)
+    _, _, res_t, _ = generate_dataset(N_TRAIN, base_seed=1, out_dir=tmp / "train",
+                                      num_workers=workers)
+    _, _, res_v, _ = generate_dataset(N_VALID, base_seed=10_000, out_dir=tmp / "valid",
+                                      num_workers=workers)
+    ds, ds_valid = load_darcy_dataset(tmp / "train"), load_darcy_dataset(tmp / "valid")
+    done(ph, train=len(ds), valid=len(ds_valid), workers=workers,
+         lstsq_residual_mean=f"{np.concatenate([res_t, res_v]).mean():.3e}")
+
+    cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
+    cfg.compute_dtype = "float32"
+    sched = create_schedule(cfg.diff_steps)
+    loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
+
+    ph = phase("9b one train step, card vs CPU")
+    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    loss_cpu_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, "cpu"), cfg)
+    rng = np.random.default_rng(0)
+    idx, t = rng.integers(0, N_TRAIN, 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
+    batch = torch.from_numpy(ds.stacked()[idx])
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    params, params_cpu = list(model.parameters()), list(model_cpu.parameters())
+    loss, _ = loss_fn(model, batch.to(dev), t.to(dev), noise.to(dev))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    loss_cpu, _ = loss_cpu_fn(model_cpu, batch, t, noise)
+    grads_cpu = torch.autograd.grad(loss_cpu, params_cpu, allow_unused=True)
+    rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    if not np.isfinite(loss.item()) or rel > STEP_LOSS_RTOL:
+        raise AssertionError(f"train step loss card {loss.item():.8e} vs CPU "
+                             f"{loss_cpu.item():.8e}: relative {rel:.2e} > {STEP_LOSS_RTOL}")
+    worst, compared = 0.0, 0
+    for (name, _), g, gc in zip(model.named_parameters(), grads, grads_cpu):
+        if (g is None) != (gc is None):
+            raise AssertionError(f"{name}: gradient on one device only")
+        if g is None:  # the guidance-conditioning modules, unused by this loss
+            continue
+        scale, err = gc.abs().max().item(), (g.cpu() - gc).abs().max().item()
+        if not torch.isfinite(g).all() or err > STEP_GRAD_TOL * scale:
+            raise AssertionError(f"{name}: card vs CPU gradient max |diff| {err:.3e} > "
+                                 f"{STEP_GRAD_TOL} x max |g| {scale:.3e}")
+        worst, compared = max(worst, err / max(scale, 1e-30)), compared + 1
+    del model_cpu, grads, grads_cpu, params_cpu
+    done(ph, loss_card=f"{loss.item():.8e}", loss_cpu=f"{loss_cpu.item():.8e}",
+         loss_rel=f"{rel:.2e}", grads_compared=compared, worst_grad_rel=f"{worst:.2e}")
+
+    ph = phase("9c loss of the 300k EMA weights")
+    data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        auxes = [train.eval_loss(loss_fn, model, data_v, cfg.diff_steps, gen) for _ in range(8)]
+    ema_loss = float(np.mean([a.loss.item() for a in auxes]))
+    ema_data = float(np.mean([a.data_loss.item() for a in auxes]))
+    ema_res = float(np.mean([a.residual_mean_abs.item() for a in auxes]))
+    if not (EMA_LOSS_BAND[0] <= ema_loss <= EMA_LOSS_BAND[1]
+            and EMA_DATA_LOSS_BAND[0] <= ema_data <= EMA_DATA_LOSS_BAND[1]
+            and EMA_RESIDUAL_BAND[0] <= ema_res <= EMA_RESIDUAL_BAND[1]):
+        raise AssertionError(f"EMA-weight loss {ema_loss:.4e} (band {EMA_LOSS_BAND}), data "
+                             f"loss {ema_data:.4e} (band {EMA_DATA_LOSS_BAND}), mean |residual| "
+                             f"{ema_res:.4e} (band {EMA_RESIDUAL_BAND})")
+    done(ph, mean_loss=f"{ema_loss:.4e}", mean_data_loss=f"{ema_data:.4e}",
+         mean_residual_mean_abs=f"{ema_res:.4e}")
+
+    ph = phase("9d training (main path)")
+    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
+    data = torch.as_tensor(ds.stacked(), device=dev)
+    step_gen = torch.Generator(device=dev)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    linear_attention_block.launches = linear_attention_block.backward_launches = 0
+    group_norm_film_silu.launches = group_norm_film_silu.backward_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
+                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
+        losses.append(aux.loss.detach())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = (linear_attention_block.launches, linear_attention_block.backward_launches,
+              group_norm_film_silu.launches, group_norm_film_silu.backward_launches)
+    want = (8 * TRAIN_STEPS, 8 * TRAIN_STEPS, 38 * TRAIN_STEPS, 38 * TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"launches K1 fwd/bwd, K2 fwd/bwd {counts}, want {want}")
+    losses = torch.stack(losses).cpu().numpy()
+    last50 = float(losses[-50:].mean())
+    if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
+        raise AssertionError(f"training losses: finite {np.isfinite(losses).all()}, "
+                             f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
+         steps_per_s=f"{TRAIN_STEPS / seconds:.3f}",
+         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
+         peak_memory_gib=f"{peak_gib:.2f}", first_loss=f"{losses[0]:.4e}",
+         last50_mean=f"{last50:.4e}", k1_fwd_bwd=f"{counts[0]}/{counts[1]}",
+         k2_fwd_bwd=f"{counts[2]}/{counts[3]}")
+    print(f"  {smi}", flush=True)
+
+    ph = phase("9e checkpoint save and restore")
+    save_checkpoint(tmp / "ckpt", TRAIN_STEPS - 1, model=state.model, ema=state.ema,
+                    optimizer=state.optimizer, config=cfg)
+    fresh = train.build_model(cfg).to(dev)
+    restored, start = restore_train_state(tmp / "ckpt",
+                                          create_train_state(fresh, make_optimizer(fresh)))
+    saved_sd, restored_sd = state.ema.state_dict(), restored.ema.state_dict()
+    same_weights = all(torch.equal(saved_sd[k], restored_sd[k]) for k in saved_sd)
+    x = data[:8]
+    tt = torch.arange(8, device=dev) * 12
+    # cuDNN's default algorithms may sum in another order from call to call
+    # (two forwards of one model differ by up to ~3e-5, printed below); with
+    # its deterministic algorithms, and K1/K2's fixed summation order, a
+    # forward of the same weights repeats bit for bit, so the restored EMA's
+    # forward must equal the saved one's exactly
+    with torch.no_grad():
+        default_repeat = (state.ema(x, tt) - state.ema(x, tt)).abs().max().item()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            y = state.ema(x, tt)
+            repeat = max((state.ema(x, tt) - y).abs().max().item() for _ in range(5))
+            err = (restored.ema(x, tt) - y).abs().max().item()
+    if start != TRAIN_STEPS or not same_weights or repeat != 0 or err != 0:
+        raise AssertionError(f"restore: start {start}, EMA weights equal {same_weights}, "
+                             f"EMA forward max |diff| {err:.3e} (same weights, 5 repeats: "
+                             f"{repeat:.3e}); both must be 0 with deterministic cuDNN")
+    del state, restored, fresh, model
+    done(ph, start=start, ema_weights_bit_equal=same_weights,
+         ema_forward_max_abs_diff=f"{err:.3e}", same_weights_5_repeats_max_abs_diff=f"{repeat:.3e}",
+         default_cudnn_same_weights_twice_max_abs_diff=f"{default_repeat:.3e}")
+
+    ph = phase("9f training CLI and sample_eval of its checkpoint")
+    out = tmp / "runs"
+    train.main(["--iterations", "3", "--batch-size", "8", "--data-dir", str(tmp / "train"),
+                "--valid-data-dir", str(tmp / "valid"), "--output-dir", str(out),
+                "--sample-freq", "1000", "--test-eval-freq", "2", "--log-freq", "1",
+                "--no-samples", "4", "--name", "smoke"])
+    run = out / "smoke"
+    stats = run / "training" / "step_3" / "sample_statistics.csv"
+    if not (stats.exists() and (run / "model" / "checkpoint_3.msgpack").exists()):
+        raise AssertionError(f"training CLI outputs missing under {run}")
+    summary = sample_eval.evaluate(run, 2, "float32", "cuda", seed=0, out=tmp / "eval")
+    if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
+        raise AssertionError(f"sample_eval of the CLI's checkpoint: {summary}")
+    done(ph, residual_median_after_4_steps=f"{summary['residual_median']:.3e}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -191,6 +472,8 @@ def main() -> int:
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval
     from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+    from physicsinformeddiffusionmodels_tpu_torch.ops import group_norm as gn
+    from physicsinformeddiffusionmodels_tpu_torch.ops import linear_attention as la
     from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
         group_norm_film_silu, group_norm_film_silu_plain)
     from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
@@ -262,23 +545,40 @@ def main() -> int:
     del model, model_cpu
     done(ph, step=step, max_abs_err=f"{err:.3e}")
 
-    ph = phase("6 sampling (main path)")
+    ph = phase("6 sampling path")
     linear_attention_block.launches = 0
     group_norm_film_silu.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         summary = sample_eval.evaluate(RUN, SAMPLES, "float32", "cuda", seed=0, out=tmp)
-    k1["launches"] = linear_attention_block.launches
-    k2["launches"] = group_norm_film_silu.launches
-    if (k1["launches"], k2["launches"]) != (8 * STEPS, 38 * STEPS):
-        raise AssertionError(f"launches K1 {k1['launches']} (want {8 * STEPS}), "
-                             f"K2 {k2['launches']} (want {38 * STEPS})")
+    launches = (linear_attention_block.launches, group_norm_film_silu.launches)
+    if launches != (8 * STEPS, 38 * STEPS):
+        raise AssertionError(f"launches K1 {launches[0]} (want {8 * STEPS}), "
+                             f"K2 {launches[1]} (want {38 * STEPS})")
     med = summary["residual_median"]
     if not (np.isfinite(summary["res_b"]).all() and RESIDUAL_RANGE[0] <= med <= RESIDUAL_RANGE[1]):
         raise AssertionError(f"residual median {med:.4e} outside {RESIDUAL_RANGE}")
     done(ph, residual_median=f"{med:.4e}", residual_mean=f"{summary['residual_mean']:.4e}",
          sampling_seconds=f"{summary['seconds']:.2f}",
          samples_per_s=f"{summary['samples_per_s']:.2f}",
-         k1_launches=k1["launches"], k2_launches=k2["launches"])
+         k1_launches=launches[0], k2_launches=launches[1])
+
+    ph = phase("7 K1 backward")
+    k1b = check_backward(
+        "linear_attention_block_backward", linear_attention_block,
+        linear_attention_block_plain,
+        lambda *a: (*a[:4], *la.launch_forward(*a)[1:]), la.launch_backward,
+        k1_args, distinct + [(100, 32), (33, 64)], K1_CALLS, k1_bwd_work)
+    done(ph, max_abs_err=f"{k1b['max_abs_err']:.3e}")
+
+    ph = phase("8 K2 backward")
+    k2_shapes = [(n, c, f) for n, c in distinct + [(100, 32)] for f in (True, False)]
+    k2b = check_backward(
+        "group_norm_film_silu_backward", group_norm_film_silu, group_norm_film_silu_plain,
+        lambda *a: (*a, gn.launch_forward(*a)[1]), gn.launch_backward, k2_args, k2_shapes,
+        K2_CALLS, k2_bwd_work)
+    done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
+
+    k1["launches"], k1b["launches"], k2["launches"], k2b["launches"] = train_phase(dev, smi)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (
@@ -286,11 +586,15 @@ def main() -> int:
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:468"),
         (k2, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:78"),
+        (k1b, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:530"),
+        (k2b, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:184"),
     ):
         entry.update(route="cuda", source=source, replaces=replaces)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2)]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2, k1b, k2b)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

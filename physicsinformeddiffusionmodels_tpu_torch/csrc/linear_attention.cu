@@ -24,7 +24,11 @@
 //      the running max and normaliser (one per k dim) and the 32x32 context
 //      in registers and shared memory (flash-style rescaling). It then folds
 //      the normalised context into M_h = 32^-1/2 ctx_h W_out,h, written to a
-//      [B, 256, C] fp32 scratch the caller allocates.
+//      [B, 256, C] fp32 scratch the caller allocates. The block also writes
+//      its normalised context and the k softmax's max and normaliser to a
+//      `stats` buffer, [B, 8, 32*32 + 2*32] fp32, for the backward
+//      (linear_attention_bwd.cu) to reuse instead of streaming the tokens
+//      again (2.2 MB at B = 64, written on every call).
 //   B. lab_out: grid (token tiles of 16, B). Each block recomputes LN and
 //      the q softmax for its tokens (one warp per head, so the softmax over
 //      32 dims is a warp shuffle) and writes x + b_out + P M.
@@ -38,6 +42,8 @@
 namespace {
 
 using pidm::from_f32;
+using pidm::ln_rows;
+using pidm::load_tile;
 using pidm::to_f32;
 
 constexpr int kThreads = 256;
@@ -49,41 +55,11 @@ constexpr int kTileB = 16;             // tokens per block in pass B
 constexpr float kQScale = 0.17677669529663687f;  // 32^-1/2
 static_assert(kH == kThreads, "pass B maps one thread to each hidden column");
 
-// Copy `tile` token rows starting at n0 into xs[tile][C] as fp32; rows at or
-// beyond N are zero.
-template <typename T>
-__device__ void load_tile(float* xs, const T* __restrict__ xb, int n0, int tile, int N,
-                          int C) {
-  const int valid = min(tile, N - n0) * C;
-  const T* src = xb + (long long)n0 * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x)
-    xs[i] = i < valid ? to_f32(src[i]) : 0.f;
-}
-
-// In-place LayerNorm over C of the first `rows` rows of xs, one warp per row.
-__device__ void ln_rows(float* xs, int rows, int C, const float* __restrict__ gamma,
-                        float eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += n_warps) {
-    float* row = xs + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mu = pidm::warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mu;
-      v = fmaf(d, d, v);
-    }
-    const float rstd = rsqrtf(pidm::warp_sum(v) / C + eps);
-    for (int c = lane; c < C; c += 32) row[c] = (row[c] - mu) * rstd * gamma[c];
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lab_ctx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ w_qkv, const float* __restrict__ w_out,
-               float* __restrict__ M, int N, int C, float eps) {
+               float* __restrict__ M, float* __restrict__ stats, int N, int C, float eps) {
   extern __shared__ float sm[];
   float* xs = sm;                       // [kTileA, C]   LN'd tokens
   float* ks = xs + kTileA * C;          // [kTileA, kDh] k, then exp(k - m)
@@ -148,6 +124,13 @@ lab_ctx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     ctx_s[idx] = ctx[k] / (alpha[idx / kDh] * (float)N);
   }
   __syncthreads();
+  // stats of (b, h): [ctx (32 x 32), m (32), z (32)]
+  float* st = stats + ((long long)b * kHeads + h) * (kDh * kDh + 2 * kDh);
+  for (int i = tid; i < kDh * kDh; i += kThreads) st[i] = ctx_s[i];
+  if (tid < kDh) {
+    st[kDh * kDh + tid] = m_run;
+    st[kDh * kDh + kDh + tid] = z_run;
+  }
   // M[b, h*32 + d, c] = 32^-1/2 * sum_e ctx[d, e] W_out[h*32 + e, c]
   float* Mb = M + (long long)b * kH * C;
   for (int i = tid; i < kDh * C; i += kThreads) {
@@ -211,8 +194,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <typename T>
 int launch(const void* x, void* out, const void* gamma, const void* w_qkv,
-           const void* w_out, const void* b_out, void* M, int B, int N, int C, float eps,
-           cudaStream_t stream) {
+           const void* w_out, const void* b_out, void* M, void* stats, int B, int N, int C,
+           float eps, cudaStream_t stream) {
   const size_t smem_a = (kTileA * C + 2 * kTileA * kDh + kDh + kDh * kDh) * sizeof(float);
   const size_t smem_b = (kTileB * C + kTileB * kH) * sizeof(float);
   cudaError_t err = allow_smem(lab_ctx_kernel<T>, smem_a);
@@ -221,7 +204,7 @@ int launch(const void* x, void* out, const void* gamma, const void* w_qkv,
   lab_ctx_kernel<T><<<dim3(kHeads, B), kThreads, smem_a, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(w_qkv), static_cast<const float*>(w_out),
-      static_cast<float*>(M), N, C, eps);
+      static_cast<float*>(M), static_cast<float*>(stats), N, C, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lab_out_kernel<T><<<dim3((N + kTileB - 1) / kTileB, B), kThreads, smem_b, stream>>>(
@@ -234,14 +217,16 @@ int launch(const void* x, void* out, const void* gamma, const void* w_qkv,
 }  // namespace
 
 // x, out: [B, N, C] fp32 (bf16 when `bf16` is 1); gamma, b_out: [C] fp32;
-// w_qkv: [C, 768] fp32; w_out: [256, C] fp32; M: [B, 256, C] fp32 scratch.
-// Launches on `stream`, allocates nothing, returns the CUDA error.
+// w_qkv: [C, 768] fp32; w_out: [256, C] fp32; M: [B, 256, C] fp32 scratch;
+// stats: [B, 8, 1088] fp32 (see pass A). Launches on `stream`,
+// allocates nothing, returns the CUDA error.
 extern "C" int pidm_linear_attention_block(const void* x, void* out, const void* gamma,
                                            const void* w_qkv, const void* w_out,
-                                           const void* b_out, void* M, int B, int N, int C,
-                                           float eps, int bf16, void* stream) {
+                                           const void* b_out, void* M, void* stats, int B,
+                                           int N, int C, float eps, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(x, out, gamma, w_qkv, w_out, b_out, M, B, N, C, eps, st);
-  return launch<float>(x, out, gamma, w_qkv, w_out, b_out, M, B, N, C, eps, st);
+    return launch<__nv_bfloat16>(x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps,
+                                 st);
+  return launch<float>(x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, st);
 }

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-All ``csrc/*.cu`` sources are compiled by ONE plain ``nvcc`` call into one
+All ``csrc/*.cu`` sources are compiled by ONE plain ``nvcc`` call (which
+compiles them in parallel) into one
 shared library with a C interface (no PyTorch headers, so it builds in
 seconds). The library goes to ``_build/`` inside the package (git-ignored),
 under a name that carries a hash of the sources and flags. It is compiled to
@@ -25,18 +26,30 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# --threads 0: nvcc compiles the sources side by side, one thread per CPU
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of csrc/*.cu: every pointer and the stream as void*, ints as int
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C signatures of csrc/*.cu: every pointer and the stream as void*, ints as
+# int; (argument types, return type)
 _SIGNATURES = {
     # x, out, gamma, beta, scale, shift, partials, B, N, C, G, S, eps, bf16, stream
-    "pidm_gn_film_silu": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    # x, out, gamma, w_qkv, w_out, b_out, M, B, N, C, eps, bf16, stream
-    "pidm_linear_attention_block": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    "pidm_gn_film_silu": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
+    # x, dy, gamma, beta, scale, shift, fwd partials, dx, dgamma, dbeta, dscale,
+    # dshift, work, B, N, C, G, S, eps, stream
+    "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
+    # B, N, C -> floats of workspace
+    "pidm_gn_film_silu_bwd_workspace": ([_I] * 3, _L),
+    # x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, bf16, stream
+    "pidm_linear_attention_block": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    # x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
+    # work, B, N, C, eps, stream
+    "pidm_linear_attention_block_bwd": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
+    # B, N, C -> floats of workspace
+    "pidm_linear_attention_block_bwd_workspace": ([_I] * 3, _L),
 }
 
 
@@ -93,10 +106,10 @@ def build() -> tuple[Path, str, float]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
 
 

@@ -1,10 +1,14 @@
-"""GroupNorm -> FiLM -> SiLU (kernel K2; port of ``ops/pallas_kernels.py``).
+"""GroupNorm -> FiLM -> SiLU (kernel K2; port of ``ops/pallas_kernels.py``'s
+forward kernel and its backward ``_gn_bwd``).
 
-``group_norm_film_silu`` launches the CUDA kernel in
-``csrc/group_norm.cu`` for a CUDA tensor and uses the plain PyTorch version
-for a CPU tensor. Nothing else chooses between them: a CUDA tensor the
-kernel does not take raises. ``group_norm_film_silu.launches`` counts the
-calls that launched the kernel.
+``group_norm_film_silu`` launches the CUDA kernels for a CUDA tensor and
+uses the plain PyTorch version, under plain autograd, for a CPU tensor.
+Nothing else chooses between them: a CUDA tensor the kernels do not take
+raises. On CUDA, when grad is enabled and an input requires it, the call
+goes through an ``autograd.Function`` whose forward launches
+``csrc/group_norm.cu`` and whose backward launches
+``csrc/group_norm_bwd.cu``. ``group_norm_film_silu.launches`` and
+``.backward_launches`` count the calls that launched each.
 """
 
 from __future__ import annotations
@@ -37,27 +41,13 @@ def group_norm_film_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch
     return (y * torch.sigmoid(y)).to(x.dtype).reshape(shape)
 
 
-def group_norm_film_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                         scale: Optional[torch.Tensor] = None,
-                         shift: Optional[torch.Tensor] = None,
-                         groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
-    """Fused GroupNorm (``groups`` groups, biased variance) -> affine
-    (gamma, beta) -> FiLM ``y * (scale + 1) + shift`` -> SiLU.
-
-    x: [B, ..., C] (fp32 or bf16, contiguous); gamma, beta: [C] fp32;
-    scale, shift: [B, C] fp32, or both None for no FiLM.
-    """
-    if x.device.type == "cpu":
-        return group_norm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _check(x, gamma, beta, scale, shift, groups) -> None:
     if x.ndim < 2 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError(
             f"x: expected a contiguous [B, ..., C] float32/bfloat16 tensor, got "
             f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})"
         )
     b, c = x.shape[0], x.shape[-1]
-    n = x.numel() // max(b * c, 1)
     if c % groups or c > 4096 or x.numel() >= 2**31:
         raise ValueError(f"unsupported shape {tuple(x.shape)} with {groups} groups")
     if (scale is None) != (shift is None):
@@ -67,20 +57,97 @@ def group_norm_film_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     if scale is not None:
         _build.check_param(scale, "scale", (b, c), x.device)
         _build.check_param(shift, "shift", (b, c), x.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def launch_forward(x, gamma, beta, scale, shift, groups: int = 8, eps: float = 1e-5):
+    """Launch the forward kernel on checked CUDA tensors. Returns (out, the
+    statistics partials [B, G, S, 2])."""
+    b, c = x.shape[0], x.shape[-1]
+    n = x.numel() // max(b * c, 1)
     s = max(1, min(64, -(-n * (c // groups) // _STATS_CHUNK)))
     out = torch.empty_like(x)
-    partials = torch.empty(b * groups * s * 2, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    rc = lib.pidm_gn_film_silu(
-        x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        None if shift is None else shift.data_ptr(),
-        partials.data_ptr(), b, n, c, groups, s, eps, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+    partials = torch.empty((b, groups, s, 2), dtype=torch.float32, device=x.device)
+    rc = _build.library().pidm_gn_film_silu(
+        x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
+        _ptr(shift), partials.data_ptr(), b, n, c, groups, s, eps,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "group_norm_film_silu")
     group_norm_film_silu.launches += 1
-    return out
+    return out, partials
+
+
+def launch_backward(dy, x, gamma, beta, scale, shift, partials, groups: int = 8,
+                    eps: float = 1e-5):
+    """Launch the backward kernel (fp32) with the forward's partials. Returns
+    (dx, dgamma, dbeta, dscale, dshift); the last two are None without FiLM."""
+    dy = dy.contiguous()
+    b, c = x.shape[0], x.shape[-1]
+    n = x.numel() // (b * c)
+    lib = _build.library()
+    work = torch.empty(lib.pidm_gn_film_silu_bwd_workspace(b, n, c), dtype=torch.float32,
+                       device=x.device)
+    dx = torch.empty_like(x)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    film = scale is not None
+    dscale = torch.empty_like(scale) if film else None
+    dshift = torch.empty_like(shift) if film else None
+    rc = lib.pidm_gn_film_silu_bwd(
+        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
+        _ptr(shift), partials.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        _ptr(dscale), _ptr(dshift), work.data_ptr(), b, n, c, groups, partials.shape[2], eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "group_norm_film_silu backward")
+    group_norm_film_silu.backward_launches += 1
+    return dx, dgamma, dbeta, dscale, dshift
+
+
+class _GroupNormFilmSilu(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one autograd node (fp32).
+    The forward's statistics partials are saved, so the backward folds the
+    same mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, groups, eps):
+        out, partials = launch_forward(x, gamma, beta, scale, shift, groups, eps)
+        ctx.save_for_backward(x, gamma, beta, scale, shift, partials)
+        ctx.groups, ctx.eps = groups, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*launch_backward(dy, *ctx.saved_tensors, ctx.groups, ctx.eps), None, None)
+
+
+def group_norm_film_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None,
+                         groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
+    """Fused GroupNorm (``groups`` groups, biased variance) -> affine
+    (gamma, beta) -> FiLM ``y * (scale + 1) + shift`` -> SiLU.
+
+    x: [B, ..., C] (fp32 or bf16, contiguous); gamma, beta: [C] fp32;
+    scale, shift: [B, C] fp32, or both None for no FiLM. The backward
+    kernel takes fp32.
+    """
+    if x.device.type == "cpu":
+        return group_norm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check(x, gamma, beta, scale, shift, groups)
+    args = (x, gamma, beta, scale, shift)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                "the K2 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 6")
+        return _GroupNormFilmSilu.apply(*args, groups, eps)
+    return launch_forward(*args, groups, eps)[0]
 
 
 group_norm_film_silu.launches = 0
+group_norm_film_silu.backward_launches = 0

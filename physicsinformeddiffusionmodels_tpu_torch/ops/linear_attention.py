@@ -1,10 +1,14 @@
-"""Fused pre-norm linear-attention block (kernel K1; port of the forward of
-``ops/pallas_attention.py``'s ``linear_attention_block``).
+"""Fused pre-norm linear-attention block (kernel K1; port of
+``ops/pallas_attention.py``'s ``linear_attention_block`` and its custom VJP).
 
-``linear_attention_block`` launches the CUDA kernel in
-``csrc/linear_attention.cu`` for a CUDA tensor and uses the plain PyTorch
-version for a CPU tensor. A CUDA tensor the kernel does not take raises.
-``linear_attention_block.launches`` counts the calls that launched it.
+``linear_attention_block`` launches the CUDA kernels for a CUDA tensor and
+uses the plain PyTorch version, under plain autograd, for a CPU tensor. A
+CUDA tensor the kernels do not take raises. On CUDA, when grad is enabled
+and an input requires it, the call goes through an ``autograd.Function``:
+its forward launches ``csrc/linear_attention.cu`` and saves the per-head
+context and k-softmax statistics it writes, and its backward
+``csrc/linear_attention_bwd.cu``. ``linear_attention_block.launches`` and
+``.backward_launches`` count the calls that launched each.
 """
 
 from __future__ import annotations
@@ -13,8 +17,9 @@ import torch
 
 from physicsinformeddiffusionmodels_tpu_torch.ops import _build
 
-# the kernel's fixed head layout: one thread per hidden column, one warp per head
+# the kernels' fixed head layout: one thread per hidden column, one warp per head
 KERNEL_HEADS, KERNEL_DIM_HEAD = 8, 32
+_STATS = KERNEL_DIM_HEAD * KERNEL_DIM_HEAD + 2 * KERNEL_DIM_HEAD  # ctx, m, z per (row, head)
 
 
 def linear_attention_block_plain(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Tensor,
@@ -38,19 +43,7 @@ def linear_attention_block_plain(x: torch.Tensor, gamma: torch.Tensor, w_qkv: to
     return (o + b_out.float() + xf).to(x.dtype)
 
 
-def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Tensor,
-                           w_out: torch.Tensor, b_out: torch.Tensor, heads: int = 8,
-                           dim_head: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """Fused residual block ``x + b_out + LA(LN_gamma(x))``.
-
-    x: [B, N, C] (fp32 or bf16, contiguous); gamma, b_out: [C] fp32;
-    w_qkv: [C, 3H] fp32; w_out: [H, C] fp32, H = heads * dim_head. The
-    kernel takes 8 heads of 32 dims and C <= 1024.
-    """
-    if x.device.type == "cpu":
-        return linear_attention_block_plain(x, gamma, w_qkv, w_out, b_out, heads, dim_head, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _check(x, gamma, w_qkv, w_out, b_out, heads, dim_head) -> None:
     if x.ndim != 3 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError(
             f"x: expected a contiguous [B, N, C] float32/bfloat16 tensor, got "
@@ -67,17 +60,86 @@ def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Te
     _build.check_param(w_qkv, "w_qkv", (c, 3 * h), x.device)
     _build.check_param(w_out, "w_out", (h, c), x.device)
     _build.check_param(b_out, "b_out", (c,), x.device)
+
+
+def launch_forward(x, gamma, w_qkv, w_out, b_out, eps: float = 1e-5):
+    """Launch the forward kernel on checked CUDA tensors. Returns (out, M,
+    stats): M and stats (per-head context and k-softmax statistics) are what
+    the backward kernel reads."""
+    b, n, c = x.shape
     out = torch.empty_like(x)
-    m = torch.empty((b, h, c), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    rc = lib.pidm_linear_attention_block(
+    m = torch.empty((b, KERNEL_HEADS * KERNEL_DIM_HEAD, c), dtype=torch.float32,
+                    device=x.device)
+    stats = torch.empty((b, KERNEL_HEADS, _STATS), dtype=torch.float32, device=x.device)
+    rc = _build.library().pidm_linear_attention_block(
         x.data_ptr(), out.data_ptr(), gamma.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
-        b_out.data_ptr(), m.data_ptr(), b, n, c, eps, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        b_out.data_ptr(), m.data_ptr(), stats.data_ptr(), b, n, c,
+        eps, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "linear_attention_block")
     linear_attention_block.launches += 1
-    return out
+    return out, m, stats
+
+
+def launch_backward(dy, x, gamma, w_qkv, w_out, m, stats, eps: float = 1e-5):
+    """Launch the backward kernel (fp32) with the forward's M and stats.
+    Returns (dx, dgamma, dw_qkv, dw_out, db_out)."""
+    dy = dy.contiguous()
+    b, n, c = x.shape
+    lib = _build.library()
+    work = torch.empty(lib.pidm_linear_attention_block_bwd_workspace(b, n, c),
+                       dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma, db_out = torch.empty_like(gamma), torch.empty_like(gamma)
+    dw_qkv, dw_out = torch.empty_like(w_qkv), torch.empty_like(w_out)
+    rc = lib.pidm_linear_attention_block_bwd(
+        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+        m.data_ptr(), stats.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dw_qkv.data_ptr(),
+        dw_out.data_ptr(), db_out.data_ptr(), work.data_ptr(), b, n, c, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "linear_attention_block backward")
+    linear_attention_block.backward_launches += 1
+    return dx, dgamma, dw_qkv, dw_out, db_out
+
+
+class _LinearAttentionBlock(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one autograd node (fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w_qkv, w_out, b_out, eps):
+        out, m, stats = launch_forward(x, gamma, w_qkv, w_out, b_out, eps)
+        ctx.save_for_backward(x, gamma, w_qkv, w_out, m, stats)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*launch_backward(dy, *ctx.saved_tensors, ctx.eps), None)
+
+
+def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Tensor,
+                           w_out: torch.Tensor, b_out: torch.Tensor, heads: int = 8,
+                           dim_head: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """Fused residual block ``x + b_out + LA(LN_gamma(x))``.
+
+    x: [B, N, C] (fp32 or bf16, contiguous); gamma, b_out: [C] fp32;
+    w_qkv: [C, 3H] fp32; w_out: [H, C] fp32, H = heads * dim_head. The
+    kernels take 8 heads of 32 dims and C <= 1024; the backward takes fp32.
+    """
+    if x.device.type == "cpu":
+        return linear_attention_block_plain(x, gamma, w_qkv, w_out, b_out, heads, dim_head, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check(x, gamma, w_qkv, w_out, b_out, heads, dim_head)
+    args = (x, gamma, w_qkv, w_out, b_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                "the K1 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 6")
+        return _LinearAttentionBlock.apply(*args, eps)
+    return launch_forward(*args, eps)[0]
 
 
 linear_attention_block.launches = 0
+linear_attention_block.backward_launches = 0

@@ -4,8 +4,10 @@
     eq0 = (-K p_d00 - K_d0 p_d0) + (-K p_d11 - K_d1 p_d1) - f_s
 
 with Neumann BC residuals (+-dp/dn on the four edges) as two more channels
-and the static two-patch source field f_s. Residual corrections and the
-residual gradient belong to a later slice.
+and the static two-patch source field f_s. Calling the evaluator gives the
+``PhysicsTerms`` the training loss takes; gradients flow through the FD
+operators. Residual corrections and the residual gradient belong to a later
+slice.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import PhysicsTerms
 from physicsinformeddiffusionmodels_tpu_torch.ops.fd import StencilGradients
 
 
@@ -29,8 +32,7 @@ def source_field(pixels_per_dim: int, w: float = 0.125, r: float = 10.0) -> np.n
 
 def trapezoidal_weights(pixels_per_dim: int) -> np.ndarray:
     """Trapezoid-rule weights on the boundary-inclusive grid: corners 1,
-    edges 2, interior 4, scaled by (1/P)^2 / 4 (the pressure gauge of the
-    residual corrections, which a later slice ports)."""
+    edges 2, interior 4, scaled by (1/P)^2 / 4 (the pressure gauge)."""
     w = np.full((pixels_per_dim, pixels_per_dim), 4.0)
     w[0, :] = w[-1, :] = w[:, 0] = w[:, -1] = 2.0
     w[0, 0] = w[0, -1] = w[-1, 0] = w[-1, -1] = 1.0
@@ -48,9 +50,26 @@ class DarcyResidual:
         d0 = domain_length / (P - 1) if pixels_at_boundary else domain_length / P
         d1 = -d0 if reverse_d1 else d0
         self.reverse_d1 = reverse_d1
+        self.pixels_at_boundary = pixels_at_boundary
         self.grads = StencilGradients(P, P, d0=d0, d1=d1, fd_acc=fd_acc,
                                       periodic=periodic, device=device)
         self.f_s = torch.as_tensor(source_field(P), dtype=torch.float32, device=device)
+        self.quad_weights = torch.as_tensor(trapezoidal_weights(P), dtype=torch.float32,
+                                            device=device)
+
+    def __call__(self, x0_pred: torch.Tensor) -> PhysicsTerms:
+        return PhysicsTerms(residual=self.residual(x0_pred))
+
+    def zero_mean_pressure(self, x0_pred: torch.Tensor) -> torch.Tensor:
+        """Subtract from p its trapezoid-rule integral (its mean when pixels
+        are cell-centred), taken on a detached copy, so the gradient flows
+        only through the uncorrected p."""
+        p = x0_pred[..., 0]
+        if self.pixels_at_boundary:
+            corr = (self.quad_weights * p.detach()).sum(dim=(1, 2))
+        else:
+            corr = p.detach().mean(dim=(1, 2))
+        return torch.stack([p - corr[:, None, None], x0_pred[..., 1]], dim=-1)
 
     def residual(self, x0_pred: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 2] (p, K) -> [B, H*W, 3]: the interior PDE residual,

@@ -26,6 +26,8 @@ from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exa
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
+    ("K1 linear attention bwd", ("lab_bwd", "gemm_atb", "reduce_splits")),
+    ("K2 group norm bwd", ("gn_bwd",)),
     ("K1 linear attention", ("lab_ctx_kernel", "lab_out_kernel")),
     ("K2 group norm", ("gn_stats_kernel", "gn_apply_kernel")),
     ("convolutions", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
@@ -55,21 +57,20 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def profile(model_dir: str, no_samples: int) -> dict:
-    dev = torch.device("cuda")
-    set_fp32_exact()
-    cfg, model, _ = load_run(model_dir, compute_dtype="float32", device=dev)
-    sample_darcy(cfg, model, no_samples, 0, dev)  # warm-up: kernel build, cuDNN choice
-    torch.cuda.synchronize()
+def device_profile(run, steps: int) -> dict:
+    """Run ``run()`` (which ends in device work) once under
+    ``torch.profiler`` and split its device time into ``steps`` steps:
+    wall and busy time, idle share, time by kernel group and by name."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sample_darcy(cfg, model, no_samples, 1, dev)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = cfg.diff_steps
-
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the ranges that record_function annotations (such
+    # as the optimizer's step) project onto the device timeline
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     if not kernels:
         raise RuntimeError("the profiler recorded no device events")
     by_name, by_group = defaultdict(float), defaultdict(float)
@@ -79,7 +80,7 @@ def profile(model_dir: str, no_samples: int) -> dict:
         by_group[_group(e.name)] += us
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     return {
-        "device": torch.cuda.get_device_name(0), "no_samples": no_samples, "steps": steps,
+        "device": torch.cuda.get_device_name(0), "steps": steps,
         "wall_ms_per_step": wall_ms / steps, "busy_ms_per_step": busy_ms / steps,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "groups_ms_per_step": {g: us / 1e3 / steps for g, us in
@@ -89,19 +90,33 @@ def profile(model_dir: str, no_samples: int) -> dict:
     }
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model-dir", default="results/darcy_300k_fp32head/portable")
-    ap.add_argument("--no-samples", type=int, default=64)
-    args = ap.parse_args(argv)
-    r = profile(args.model_dir, args.no_samples)
-    print(f"{r['device']}: {r['no_samples']} samples, {r['steps']} steps: "
+def report(r: dict, what: str) -> None:
+    """Print a profile: the summary line, the groups and kernels, then JSON."""
+    print(f"{r['device']}: {what}, {r['steps']} steps: "
           f"{r['wall_ms_per_step']:.3f} ms/step wall, {r['busy_ms_per_step']:.3f} ms busy, "
           f"idle share {r['idle_share']:.3f}")
     for section in ("groups_ms_per_step", "top_kernels_ms_per_step"):
         for name, ms in r[section].items():
             print(f"  {ms:9.4f} ms/step  {name}")
     print(json.dumps(r))
+
+
+def profile(model_dir: str, no_samples: int) -> dict:
+    dev = torch.device("cuda")
+    set_fp32_exact()
+    cfg, model, _ = load_run(model_dir, compute_dtype="float32", device=dev)
+    sample_darcy(cfg, model, no_samples, 0, dev)  # warm-up: kernel build, cuDNN choice
+    torch.cuda.synchronize()
+    r = device_profile(lambda: sample_darcy(cfg, model, no_samples, 1, dev), cfg.diff_steps)
+    return {**r, "no_samples": no_samples}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model-dir", default="results/darcy_300k_fp32head/portable")
+    ap.add_argument("--no-samples", type=int, default=64)
+    args = ap.parse_args(argv)
+    report(profile(args.model_dir, args.no_samples), f"{args.no_samples} samples")
 
 
 if __name__ == "__main__":

@@ -93,9 +93,9 @@ def sample_darcy(cfg: RunConfig, model: UNet, no_samples: int, seed: int,
     return x, physics.residual(x)
 
 
-def write_darcy_outputs(out_dir: Path, samples: np.ndarray, res_b: np.ndarray) -> None:
-    """Per-sample CSVs and ``sample_statistics.csv`` under ``out_dir/validation``."""
-    step_dir = out_dir / "validation"
+def write_darcy_outputs(step_dir: Path, samples: np.ndarray, res_b: np.ndarray) -> None:
+    """Per-sample CSVs (``sample_<s>/sample_<c>.csv``) and
+    ``sample_statistics.csv`` under ``step_dir``."""
     for s in range(samples.shape[0]):
         (step_dir / f"sample_{s}").mkdir(parents=True, exist_ok=True)
         for c in range(samples.shape[-1]):
@@ -130,7 +130,7 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
     res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()  # host copy waits for the device
     seconds = time.perf_counter() - t0
 
-    write_darcy_outputs(out_dir, samples.float().cpu().numpy(), res_b)
+    write_darcy_outputs(out_dir / "validation", samples.float().cpu().numpy(), res_b)
     summary = {
         "model_dir": str(model_dir), "checkpoint_step": ckpt_step, "no_samples": no_samples,
         "seed": seed, "compute_dtype": compute_dtype or cfg.compute_dtype,

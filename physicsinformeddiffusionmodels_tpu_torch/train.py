@@ -1,0 +1,249 @@
+"""Darcy training driver (port of the Darcy part of the root ``train.py``).
+
+    python -m physicsinformeddiffusionmodels_tpu_torch.train --iterations N \\
+        [--batch-size B] [--data-dir DIR --valid-data-dir DIR] [--device cpu] [--resume]
+
+Physics-informed diffusion training of ``UNet(dim=32, channels=2)`` on the
+Darcy data (``data/darcy_generator.py`` writes it): the loss adds the PDE
+residual log-likelihood of the x0 prediction to the p2-weighted data loss;
+global-norm clip, Adam, EMA. The whole dataset lives on the device and each
+step samples its batch there. Every ``log_freq`` steps the losses go to
+``metrics.csv``; every ``test_eval_freq`` steps the EMA weights are scored
+on a validation batch; every ``sample_freq`` steps (and at the end) the EMA
+model samples ``no_samples`` fields (CSV outputs) and a checkpoint is saved.
+SIGTERM/SIGINT save a full checkpoint and stop; ``--resume`` continues from
+the newest one. Outputs go to ``<output_dir>/<name>/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+from physicsinformeddiffusionmodels_tpu_torch.data.datasets import (
+    cycle_batches,
+    load_darcy_dataset,
+)
+from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import (
+    LossWeights,
+    pidm_loss,
+    uniform_timesteps,
+)
+from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
+    DiffusionSchedule,
+    create_schedule,
+)
+from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model as _build_unet
+from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
+from physicsinformeddiffusionmodels_tpu_torch.sample_eval import (
+    sample_darcy,
+    write_darcy_outputs,
+)
+from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
+    restore_train_state,
+    save_checkpoint,
+)
+from physicsinformeddiffusionmodels_tpu_torch.training.metrics import MetricsLogger
+from physicsinformeddiffusionmodels_tpu_torch.training.shutdown import install_graceful_stop
+from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+    create_train_state,
+    make_optimizer,
+    resident_train_step,
+)
+from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device, set_fp32_exact
+
+
+# metrics.csv columns, in the JAX driver's order
+_COLUMNS = ["step", "time", "loss", "loss_data", "residual_mean_abs", "loss_test",
+            "loss_data_test", "residual_mean_abs_test", "residual_mean_abs_samples",
+            "residual_median_abs_samples"]
+
+
+def check_supported(cfg: RunConfig) -> None:
+    """Raise for the options of the JAX driver that the port does not train yet."""
+    if cfg.gov_eqs != "darcy":
+        raise NotImplementedError("mechanics training is not ported yet: ROADMAP Queue 1 item 9")
+    if cfg.residual_grad_guidance:
+        raise NotImplementedError(
+            "residual-gradient guidance is not ported yet: ROADMAP Queue 1 item 7")
+    if cfg.x0_estimation != "mean":
+        raise NotImplementedError(
+            "x0_estimation='sample' (DDIM) is not ported yet: ROADMAP Queue 1 item 7")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bf16 training is not ported yet (the backward kernels are fp32): "
+            "ROADMAP Queue 1 item 6")
+    if cfg.mesh_tp > 1 or cfg.mesh_slices > 1 or (cfg.mesh_dp or 1) > 1:
+        raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 12")
+
+
+def build_model(cfg: RunConfig) -> UNet:
+    """The study's UNet for ``cfg`` (float32 compute)."""
+    check_supported(cfg)
+    return _build_unet(cfg, "float32")
+
+
+def make_physics(cfg: RunConfig, device) -> DarcyResidual:
+    return DarcyResidual(
+        pixels_per_dim=cfg.pixels_per_dim, fd_acc=cfg.fd_acc,
+        pixels_at_boundary=cfg.pixels_at_boundary, reverse_d1=cfg.reverse_d1,
+        domain_length=cfg.domain_length, periodic=cfg.bcs == "periodic", device=device,
+    )
+
+
+def build_darcy_loss_fn(sched: DiffusionSchedule, physics: DarcyResidual, cfg: RunConfig):
+    """``loss_fn(model, batch, t, noise) -> (loss, aux)``: the physics-informed
+    loss with the Darcy residual of the x0 prediction."""
+    check_supported(cfg)
+    weights = LossWeights(cfg.c_data, cfg.c_residual, cfg.c_ineq, cfg.lambda_opt)
+
+    def loss_fn(model, batch, t, noise):
+        return pidm_loss(sched, batch, t, noise, denoise_fn=model, physics_fn=physics,
+                         weights=weights, pred_mode="x0")
+
+    return loss_fn
+
+
+@torch.no_grad()
+def eval_loss(loss_fn, model, batch: torch.Tensor, n_steps: int, generator: torch.Generator):
+    """The loss aux of ``model`` on ``batch`` with fresh t and noise."""
+    t = uniform_timesteps(generator, batch.shape[0], n_steps, device=batch.device)
+    noise = torch.randn(batch.shape, generator=generator, device=batch.device)
+    return loss_fn(model, batch, t, noise)[1]
+
+
+def run_darcy(cfg: RunConfig, device=None):
+    """Train per ``cfg``; returns the final ``TrainState``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    set_fp32_exact()
+    out_dir = Path(cfg.output_dir) / cfg.name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "config.json").write_text(cfg.to_json())
+
+    ds = load_darcy_dataset(cfg.data_dir)
+    ds_valid = load_darcy_dataset(cfg.valid_data_dir)
+    print(f"train samples: {len(ds)}, valid: {len(ds_valid)}")
+    dl_valid = cycle_batches(ds_valid, min(cfg.train_batch_size, len(ds_valid)))
+    data = torch.as_tensor(ds.stacked(), device=dev)
+
+    sched = create_schedule(cfg.diff_steps)
+    physics = make_physics(cfg, dev)
+    torch.manual_seed(cfg.seed)
+    model = build_model(cfg).to(dev)
+    print(f"Number of trainable parameters: {sum(p.numel() for p in model.parameters())}")
+    opt = make_optimizer(model, cfg.lr, cfg.grad_clip, cfg.lr_schedule, cfg.train_iterations,
+                         cfg.lr_final_frac)
+    state = create_train_state(model, opt)
+    start_it = 0
+    if cfg.resume:
+        state, start_it = restore_train_state(out_dir / "model", state)
+    loss_fn = build_darcy_loss_fn(sched, physics, cfg)
+
+    logger = MetricsLogger(out_dir)
+    should_stop = install_graceful_stop()
+    step_gen = torch.Generator(device=dev)
+    eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + start_it)
+    t0 = time.time()
+    it = start_it
+    while it <= cfg.train_iterations:
+        aux = resident_train_step(state, loss_fn, data, cfg.train_batch_size, cfg.diff_steps,
+                                  cfg.seed, step_gen, ema_mu=cfg.ema_decay,
+                                  ema_start=cfg.ema_start)
+        if it % cfg.log_freq == 0:
+            logger.log({"loss": aux.loss.detach(), "loss_data": aux.data_loss.detach(),
+                        "residual_mean_abs": aux.residual_mean_abs.detach()}, step=it)
+        if it % cfg.test_eval_freq == 0:
+            vb = torch.as_tensor(next(dl_valid), device=dev)
+            aux_t = eval_loss(loss_fn, state.ema, vb, cfg.diff_steps, eval_gen)
+            print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
+                  f"res|_train={aux.residual_mean_abs.item():.3e} ({time.time() - t0:.0f}s)",
+                  flush=True)
+            logger.log({"loss_test": aux_t.loss, "loss_data_test": aux_t.data_loss,
+                        "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
+            logger.flush(_COLUMNS)
+        if (it % cfg.sample_freq == 0 and it > 0) or it == cfg.train_iterations:
+            samples, residual = sample_darcy(cfg, state.ema, cfg.no_samples, cfg.seed + it, dev)
+            res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
+            logger.log({"residual_mean_abs_samples": float(np.nanmean(res_b)),
+                        "residual_median_abs_samples": float(np.nanmedian(res_b))}, step=it)
+            write_darcy_outputs(out_dir / "training" / f"step_{it}",
+                                samples.cpu().numpy(), res_b)
+            # intermediate saves leave the optimizer state out; the final one keeps it
+            save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
+                            optimizer=opt if it == cfg.train_iterations else None, config=cfg)
+            print(f"it {it}: sampled, residual mean {np.nanmean(res_b):.3e}", flush=True)
+        if should_stop():
+            save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
+                            optimizer=opt, config=cfg)
+            print(f"it {it}: checkpoint saved on shutdown request", flush=True)
+            break
+        it += 1
+    logger.flush(_COLUMNS)
+    return state
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gov-eqs", default="darcy", choices=["darcy", "mechanics"])
+    ap.add_argument("--name", default="run_1")
+    ap.add_argument("--iterations", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--x0-estimation", default=None, choices=["mean", "sample"])
+    ap.add_argument("--c-residual", type=float, default=None)
+    ap.add_argument("--data-dir", default=None)
+    ap.add_argument("--valid-data-dir", default=None)
+    ap.add_argument("--output-dir", default=None)
+    ap.add_argument("--sample-freq", type=int, default=None)
+    ap.add_argument("--test-eval-freq", type=int, default=None)
+    ap.add_argument("--log-freq", type=int, default=None)
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--pixels-per-dim", type=int, default=None)
+    ap.add_argument("--no-samples", type=int, default=None)
+    ap.add_argument("--chunk-steps", type=int, default=None,
+                    help="read for config.json; the port runs step by step either way")
+    ap.add_argument("--residual-grad-guidance", action="store_true")
+    ap.add_argument("--lr-schedule", default=None, choices=["constant", "cosine"])
+    ap.add_argument("--lr-final-frac", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint of this run name")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> RunConfig:
+    kw = {"gov_eqs": args.gov_eqs, "name": args.name, "compute_dtype": args.compute_dtype}
+    for k_arg, k_cfg in [
+        ("iterations", "train_iterations"), ("batch_size", "train_batch_size"),
+        ("x0_estimation", "x0_estimation"), ("c_residual", "c_residual"),
+        ("data_dir", "data_dir"), ("valid_data_dir", "valid_data_dir"),
+        ("output_dir", "output_dir"), ("sample_freq", "sample_freq"),
+        ("test_eval_freq", "test_eval_freq"), ("log_freq", "log_freq"),
+        ("pixels_per_dim", "pixels_per_dim"), ("no_samples", "no_samples"),
+        ("chunk_steps", "chunk_steps"), ("lr_schedule", "lr_schedule"),
+        ("lr_final_frac", "lr_final_frac"), ("seed", "seed"),
+    ]:
+        v = getattr(args, k_arg)
+        if v is not None:
+            kw[k_cfg] = v
+    if args.residual_grad_guidance:
+        kw["residual_grad_guidance"] = True
+    if args.resume:
+        kw["resume"] = True
+    return RunConfig(**kw)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    return run_darcy(config_from_args(args), args.device)
+
+
+if __name__ == "__main__":
+    main()

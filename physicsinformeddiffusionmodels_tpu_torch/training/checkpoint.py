@@ -1,20 +1,30 @@
-"""Reader for the Flax msgpack checkpoints the JAX package writes.
+"""Checkpoints in the Flax msgpack format the JAX package writes.
 
 ``flax.serialization.msgpack_serialize`` writes a msgpack map whose array
 leaves are msgpack ext values: type 1 is an ndarray and type 3 a numpy
 scalar, each with a payload that is itself msgpack ``(shape, dtype_name,
-row-major bytes)``. This module decodes that subset of the format in plain
-Python (maps, arrays, str, bin, ints, floats, nil, bool, ext), so the port
-needs neither ``flax`` nor ``msgpack``. There is no writer in this slice.
+row-major bytes)``. This module reads and writes that subset of the format
+in plain Python (maps, arrays, str, bin, ints, floats, nil, bool, ext), so
+the port needs neither ``flax`` nor ``msgpack``.
+
+A checkpoint the port writes holds ``step``, ``params`` and ``ema_params``
+in the Flax tree layout (``{"params": {...}}``, the inverse of
+``models/convert.py``), so both packages' ``sample_eval`` read it, and
+``opt_state`` in the port's own layout: Adam's moments and step count per
+parameter name, under string keys (Flax's reader refuses others).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import struct
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -145,6 +155,194 @@ def load_checkpoint(path: str | os.PathLike) -> dict:
     ``sample_eval.py`` restores them.
     """
     return _to_float32(msgpack_restore(Path(path).read_bytes()))
+
+
+def _pack_len(out: bytearray, n: int, tags: tuple, fix_tag: Optional[int], fix_max: int) -> None:
+    """Append the header of a str/bin/array/map of length n: the fix form
+    when it fits, else the 8-, 16- or 32-bit length form (``tags``)."""
+    if fix_tag is not None and n <= fix_max:
+        out.append(fix_tag | n)
+        return
+    for tag, fmt in zip(tags, (">B", ">H", ">I")):
+        if tag is not None and n < 2 ** (8 * struct.calcsize(fmt)):
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object too long ({n})")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixed:
+        out.append(fixed[len(payload)])
+    else:
+        _pack_len(out, len(payload), (0xC7, 0xC8, 0xC9), None, 0)
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _pack(obj, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):  # the shortest form, as msgpack-python writes it
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        else:
+            forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if obj > 0 else \
+                ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+            for tag, fmt in forms:
+                bits = 8 * struct.calcsize(fmt)
+                if (obj < 2**bits) if obj > 0 else (obj >= -(2 ** (bits - 1))):
+                    out.append(tag)
+                    out += struct.pack(fmt, obj)
+                    break
+            else:
+                raise ValueError(f"integer {obj} does not fit msgpack")
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _pack_len(out, len(b), (0xD9, 0xDA, 0xDB), 0xA0, 31)
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), (0xC4, 0xC5, 0xC6), None, 0)
+        out += obj
+    elif isinstance(obj, dict):  # keys in sorted order, as Flax writes them
+        _pack_len(out, len(obj), (None, 0xDE, 0xDF), 0x80, 15)
+        for k in sorted(obj):
+            _pack(k, out)
+            _pack(obj[k], out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), (None, 0xDC, 0xDD), 0x90, 15)
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        a = np.asarray(obj)
+        payload = bytearray()
+        _pack((tuple(int(d) for d in a.shape), a.dtype.name, a.tobytes("C")), payload)
+        _pack_ext(out, _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR,
+                  bytes(payload))
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists, Python scalars and numpy arrays as
+    ``flax.serialization.msgpack_serialize`` does."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+# torch module prefixes of the attention modules that sit at the top of the
+# Flax tree (the inverse of convert.py's map)
+_UNWRAPPED = {"mid_spatial_attn.fn": "Attention_0", "init_frame_attn.fn": "FrameAttention_0",
+              "mid_frame_attn.fn": "FrameAttention_1"}
+
+
+def flax_params_from_torch(state_dict: dict) -> dict:
+    """The inverse of ``models.convert.torch_state_dict_from_flax``: a
+    ``UNet`` state dict as a Flax tree ``{"params": {...}}`` of float32
+    numpy arrays."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        for prefix, name in _UNWRAPPED.items():
+            if key.startswith(prefix + "."):
+                key = name + key[len(prefix):]
+        *modules, name = key.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if name == "weight":
+            name = "kernel"
+            if a.ndim == 4 and modules[-1].startswith("ConvTranspose"):
+                a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            elif a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                a = a.T
+        node = tree
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def _adam_state(model: torch.nn.Module, optimizer) -> dict:
+    """Adam's per-parameter state under the parameters' names."""
+    state = optimizer.state_dict()["state"]
+    out = {}
+    for i, (name, _) in enumerate(n for n in model.named_parameters() if n[1].requires_grad):
+        if i in state:
+            out[name] = {k: np.asarray(v.detach().cpu().numpy()) if torch.is_tensor(v) else v
+                         for k, v in state[i].items()}
+    return {"format": "torch.optim.Adam", "state": out}
+
+
+def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict) -> None:
+    if saved.get("format") != "torch.optim.Adam":
+        raise ValueError(f"unknown optimizer state format {saved.get('format')!r}")
+    device = next(model.parameters()).device
+    state = {}
+    for i, (name, _) in enumerate(n for n in model.named_parameters() if n[1].requires_grad):
+        if name in saved["state"]:
+            entry = saved["state"][name]
+            # Adam keeps its step count on the host unless capturable/fused
+            state[i] = {k: torch.tensor(v) if k == "step" else torch.from_numpy(np.array(v)).to(device)
+                        for k, v in entry.items()}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+
+
+def save_checkpoint(directory: str | os.PathLike, step: int, *, model: torch.nn.Module,
+                    ema: Optional[torch.nn.Module] = None, optimizer=None,
+                    config=None) -> Path:
+    """Write ``checkpoint_<step>.msgpack`` (and ``config.json`` when a
+    config is given) under ``directory``. ``optimizer=None`` leaves the
+    optimizer state out, as intermediate saves do. The file is written to
+    a temporary name and moved into place."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "step": int(step),
+        "params": flax_params_from_torch(model.state_dict()),
+        "ema_params": flax_params_from_torch(ema.state_dict()) if ema is not None else {},
+        "opt_state": _adam_state(model, optimizer) if optimizer is not None else {},
+    }
+    path = directory / f"checkpoint_{step}.msgpack"
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(msgpack_serialize(payload))
+    os.replace(tmp, path)
+    if config is not None:
+        cfg = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else config
+        (directory / "config.json").write_text(json.dumps(cfg, indent=2, default=str))
+    return path
+
+
+def restore_train_state(directory: str | os.PathLike, state) -> tuple[object, int]:
+    """Restore a ``TrainState`` (model, EMA, optimizer, step) in place from
+    the newest checkpoint under ``directory``. The stored step is the loop
+    label of the save, whose update is already in the weights, so the run
+    continues at label + 1. Returns (state, start step); (state, 0) when
+    there is no checkpoint. A checkpoint without EMA restores the EMA as the
+    weights; one without optimizer state keeps the fresh optimizer."""
+    from physicsinformeddiffusionmodels_tpu_torch.models.convert import (
+        torch_state_dict_from_flax,
+    )
+
+    path = latest_checkpoint(directory)
+    if path is None:
+        return state, 0
+    raw = msgpack_restore(path.read_bytes())
+    params = torch_state_dict_from_flax(raw["params"])
+    state.model.load_state_dict(params)
+    state.ema.load_state_dict(torch_state_dict_from_flax(raw["ema_params"])
+                              if raw.get("ema_params") else params)
+    if raw.get("opt_state"):
+        _load_adam_state(state.model, state.optimizer, raw["opt_state"])
+    state.step = int(raw["step"]) + 1
+    print(f"Resumed from {path} at step {state.step}")
+    return state, state.step
 
 
 def latest_checkpoint(directory: str | os.PathLike) -> Path | None:

@@ -24,15 +24,20 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_CHECK = """
 import importlib, json, pkgutil, sys
+banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib",
+          "physicsinformeddiffusionmodels_tpu")
+for name in banned:  # an import of any of them now raises ImportError
+    sys.modules[name] = None
 import physicsinformeddiffusionmodels_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
 sample_eval.parse_args(["--model-dir", "m", "--no-samples", "2", "--device", "cpu"])
-banned = ("jax", "jaxlib", "flax", "msgpack", "matplotlib", "physicsinformeddiffusionmodels_tpu")
+train.parse_args(["--iterations", "2", "--device", "cpu"])
 print(json.dumps({"modules": names,
-                  "banned": sorted(k for k in sys.modules if k.split(".")[0] in banned)}))
+                  "banned": sorted(k for k in sys.modules
+                                   if k.split(".")[0] in banned and sys.modules[k] is not None)}))
 """
 
 
@@ -41,8 +46,10 @@ def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "physicsinformeddiffusionmodels_tpu_torch.models.unet" in report["modules"]
-    assert len(report["modules"]) >= 20
+    for name in ("models.unet", "train", "data.datasets", "data.darcy_generator",
+                 "training.trainer", "diffusion.losses"):
+        assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
+    assert len(report["modules"]) >= 29
     assert report["banned"] == []
 
 
@@ -126,6 +133,10 @@ def test_profile_helpers_group_kernels_and_merge_busy_intervals():
         == "K1 linear attention"
     assert _group("void (anonymous namespace)::gn_apply_kernel<float>(float const*)") \
         == "K2 group norm"
+    assert _group("(anonymous namespace)::gemm_atb_kernel(float const*)") \
+        == "K1 linear attention bwd"
+    assert _group("(anonymous namespace)::gn_bwd_apply_kernel(float const*)") \
+        == "K2 group norm bwd"
     assert _group("sm80_xmma_fprop_implicit_gemm_f32f32") == "convolutions"
     assert _group("ampere_sgemm_128x64_nn") == "matmuls"
     assert _group("elementwise_kernel") == "other"

@@ -6,6 +6,8 @@ file imports no JAX, so that it runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -89,17 +91,17 @@ K1_MUTANTS = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mutant", sorted(K1_MUTANTS))
-def test_linear_attention_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+@contextlib.contextmanager
+def _patched_kernels(monkeypatch, tmp_path, filename, old, new):
+    """Build and load the library from a copy of ``csrc/`` in which ``old``
+    (once in ``filename``) is replaced by ``new``."""
     from physicsinformeddiffusionmodels_tpu_torch.ops import _build
 
-    old, new = K1_MUTANTS[mutant]
     src = tmp_path / "csrc"
     src.mkdir()
     for f in _build.CSRC.iterdir():
         text = f.read_text()
-        if f.name == "linear_attention.cu":
+        if f.name == filename:
             assert text.count(old) == 1
             text = text.replace(old, new)
         (src / f.name).write_text(text)
@@ -108,14 +110,21 @@ def test_linear_attention_comparison_fails_a_broken_kernel(cuda, monkeypatch, tm
     _build.build.cache_clear()
     _build.library.cache_clear()
     try:
+        yield
+    finally:  # the next launch loads the library of the real sources again
+        _build.build.cache_clear()
+        _build.library.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(K1_MUTANTS))
+def test_linear_attention_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+    with _patched_kernels(monkeypatch, tmp_path, "linear_attention.cu", *K1_MUTANTS[mutant]):
         args = [_t(a, cuda) for a in _lab_inputs(4, 4096, 32)]
         got = linear_attention_block(*args)
         with pytest.raises(AssertionError):
             torch.testing.assert_close(got, linear_attention_block_plain(*args),
                                        atol=1e-4, rtol=1e-4)
-    finally:  # the next launch loads the library of the real sources again
-        _build.build.cache_clear()
-        _build.library.cache_clear()
 
 
 @pytest.mark.cuda
@@ -143,3 +152,113 @@ def test_kernel_wrappers_raise_on_bad_arguments(cuda):
         group_norm_film_silu(x.half(), gamma, b_out)
     with pytest.raises(ValueError):
         group_norm_film_silu(x, gamma, b_out, scale=gamma[None])
+
+
+# fp32 on both sides, sums in another order (split token reductions, tiled
+# products): each gradient within 1e-4 of the largest entry of its tensor
+GRAD_TOL = 1e-4
+
+
+def _grads(fn, args, dy):
+    """Gradients of <fn(*args), dy> with respect to every tensor argument."""
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, [a for a in leaves if a is not None], dy)
+
+
+def _assert_grads_close(got, ref, names):
+    for name, g, r in zip(names, got, ref):
+        assert g.shape == r.shape, name
+        scale = r.abs().max().item()
+        err = (g - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= GRAD_TOL * scale, (
+            f"{name}: max |diff| {err:.3e} > {GRAD_TOL} x max |g| {scale:.3e}")
+
+
+def _check_lab_backward(cuda, n, c, b=4):
+    args = [_t(a, cuda) for a in _lab_inputs(b, n, c)]
+    dy = torch.randn(b, n, c, generator=torch.Generator().manual_seed(n + c)).to(cuda)
+    _, ref = _grads(linear_attention_block_plain, args, dy)
+    fwd, bwd = linear_attention_block.launches, linear_attention_block.backward_launches
+    _, got = _grads(linear_attention_block, args, dy)
+    torch.cuda.synchronize()
+    assert (linear_attention_block.launches, linear_attention_block.backward_launches) == (
+        fwd + 1, bwd + 1)
+    _assert_grads_close(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out", "db_out"))
+
+
+def _check_gn_backward(cuda, n, c, film, b=4):
+    args = [_t(a, cuda) for a in _gn_inputs(b, n, c, film)]
+    dy = torch.randn(b, n, c, generator=torch.Generator().manual_seed(n + c)).to(cuda)
+    _, ref = _grads(group_norm_film_silu_plain, args, dy)
+    fwd, bwd = group_norm_film_silu.launches, group_norm_film_silu.backward_launches
+    _, got = _grads(group_norm_film_silu, args, dy)
+    torch.cuda.synchronize()
+    assert (group_norm_film_silu.launches, group_norm_film_silu.backward_launches) == (
+        fwd + 1, bwd + 1)
+    _assert_grads_close(got, ref, ("dx", "dgamma", "dbeta", "dscale", "dshift"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
+def test_linear_attention_backward_matches_plain(cuda, n, c):
+    _check_lab_backward(cuda, n, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32)])
+def test_group_norm_backward_matches_plain(cuda, n, c, film):
+    _check_gn_backward(cuda, n, c, film)
+
+
+# one-line breaks of the backward kernels, each of which the gradient
+# comparison above must catch: file -> {name: (text replaced, replacement)}
+BWD_MUTANTS = {
+    "linear_attention_bwd.cu": {
+        "row term dropped": ("kp[r] * (dkp - rj)", "kp[r] * dkp"),
+        "dctx transposed": ("dch[lane * kDhP + e]", "dch[e * kDhP + lane]"),
+    },
+    "group_norm_bwd.cu": {
+        "t2 dropped": ("(t1[g] + xhat * t2[g])", "(t1[g])"),
+        "SiLU derivative dropped": ("return sig * (1.f + z * (1.f - sig));", "return 1.f;"),
+    },
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filename,mutant", [(f, m) for f in BWD_MUTANTS for m in BWD_MUTANTS[f]])
+def test_backward_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, filename, mutant):
+    with _patched_kernels(monkeypatch, tmp_path, filename, *BWD_MUTANTS[filename][mutant]):
+        with pytest.raises(AssertionError):
+            if filename == "linear_attention_bwd.cu":
+                _check_lab_backward(cuda, 1024, 32)
+            else:
+                _check_gn_backward(cuda, 1024, 32, film=True)
+
+
+@pytest.mark.cuda
+def test_kernels_keep_the_unet_in_the_autograd_graph(cuda):
+    """Every K1 and K2 parameter of UNet(dim=32) gets a non-zero gradient
+    from a training loss on the card (the kernels once returned outputs
+    with no grad_fn, which cut these parameters off)."""
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import LossWeights, pidm_loss
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+    from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
+
+    torch.manual_seed(0)
+    model = UNet(dim=32, channels=2).to(cuda)
+    x0 = torch.randn(2, 64, 64, 2, device=cuda)
+    t = torch.tensor([3, 70], device=cuda)
+    noise = torch.randn(2, 64, 64, 2, device=cuda)
+    loss, _ = pidm_loss(create_schedule(100), x0, t, noise, denoise_fn=model,
+                        physics_fn=DarcyResidual(64, device=cuda),
+                        weights=LossWeights(1.0, 1e-3))
+    loss.backward()
+    names = [n for n, _ in model.named_parameters()
+             if n.split(".")[-1] in ("ln_gamma", "w_qkv", "w_out", "b_out", "gn_scale", "gn_bias")]
+    assert len(names) == 8 * 4 + 38 * 2
+    for name, p in model.named_parameters():
+        if name in names:
+            assert p.grad is not None and p.grad.abs().max().item() > 0, name
