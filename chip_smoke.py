@@ -37,10 +37,28 @@ the script exits non-zero:
      weights back bit for bit, and their forward under cuDNN's
      deterministic algorithms bit-equal to the saved weights'); (f) the
      training CLI for 3 steps, and ``sample_eval`` of its checkpoint.
+ 10. K3, the linear attention alone (a mode of K1's kernels): forward
+     against its plain version at every path shape and two ragged ones, at
+     B=4 and B=64, fp32 and bf16; its backward against torch autograd
+     through the plain version the same way; both timed at B=64; K1(x)
+     against x + b_out + K3(LN(x)) at every path shape at B=4; then the
+     main path of K3: ``profile_attn``'s level-0 stage (two resnet blocks,
+     then ``PreNormResidual(SpatialLinearAttention)``), one eager forward
+     and one eager forward + backward, with K3's launch counts zeroed just
+     before and read just after (2 forward, 1 backward), its output against
+     the stage through the plain version and through K1; then the stage's
+     times through K3 and through K1.
+ 11. corrected sampling: one ``residual_correction`` of phase 6's 64 final
+     samples on the card and on the CPU (x and residual within 1e-5 of
+     their largest entry); then ``sample_eval`` as in phase 6 with CoCoGen
+     corrections in x0 and in xt mode (N=10, M=5, and M=0 for the in-loop
+     corrections alone): residual median in the same range, launches K1
+     800 and K2 3800 (the corrections call no model), samples that differ
+     from phase 6's.
 The last three lines are a JSON object with each kernel's launches (counted
-on the training path), error and times, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``. Exits 2 without a result where
-torch.cuda.is_available() is false.
+on the training path for K1 and K2, on the stage run of phase 10 for K3),
+error and times, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+Exits 2 without a result where torch.cuda.is_available() is false.
 """
 
 from __future__ import annotations
@@ -105,6 +123,10 @@ EMA_RESIDUAL_BAND = (0.0155, 0.0619)
 # JAX run's mean training loss over its last 20k iterations (0.037)
 TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 200, 64, 0.11
 N_TRAIN, N_VALID = 256, 64
+# phase 11: CoCoGen corrections in the last N steps and M post-steps; one
+# correction card vs CPU, x and residual each within CORRECTION_TOL of the
+# largest entry (fp32; the FD sums run in another order)
+N_CORRECTION, M_CORRECTION, CORRECTION_TOL = 10, 5, 1e-5
 
 
 def phase(name: str):
@@ -116,32 +138,6 @@ def done(ph, **info) -> None:
     name, t0 = ph
     extra = " ".join(f"{k}={v}" for k, v in info.items())
     print(f"[{name}] done in {time.perf_counter() - t0:.2f} s {extra}".rstrip(), flush=True)
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls: the calls
-    are captured in one CUDA graph and replayed, so the host's per-call
-    work (argument checks, allocation, the ctypes call) is not timed."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture: build, cuBLAS handles
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
 
 
 def compare(got, ref, tol: float, what: str) -> float:
@@ -193,6 +189,29 @@ def k2_bwd_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
     return nbytes, 25.0 * b * n * c
 
 
+def k3_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
+    """K1's bytes without gamma and b_out, and K1's operation count (its
+    matmul flops count no LN)."""
+    nbytes, flops = k1_work(b, n, c, h, dh)
+    return nbytes - 4 * 2 * c, flops
+
+
+def k3_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
+    """K1 backward's bytes without gamma, b_out and their gradients, and its
+    operation count (its matmul flops count no LayerNorm VJP)."""
+    nbytes, flops = k1_bwd_work(b, n, c, h, dh)
+    return nbytes - 4 * 2 * 2 * c, flops
+
+
+def k3_term(args, ref) -> float:
+    """max |LA(x)| of the plain output; fails when the term is too small for
+    the comparison to see it."""
+    term = ref.abs().max().item()
+    if term < K1_MIN_TERM:
+        raise AssertionError(f"K3 attention term {term:.3e} < {K1_MIN_TERM}")
+    return term
+
+
 def k1_term(args, ref) -> float:
     """max |LA(LN(x))| of the plain output ``ref`` = x + b_out + LA; fails
     when the term is too small for the comparison to see it."""
@@ -209,6 +228,8 @@ def check_kernel(name, kernel, plain, make_args, shapes_b4, path_calls, work, pa
     given, checks that the kernel's own work is visible beside the tolerance
     in each fp32 comparison. Returns the kernel's entry."""
     import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.profile_attn import graph_ms
 
     def held(args, what):
         ref = plain(*args)
@@ -233,7 +254,7 @@ def check_kernel(name, kernel, plain, make_args, shapes_b4, path_calls, work, pa
             max_err = max(max_err, held(args, f"{name} B=64 {call}"))
             b_ms, b_by = bound_ms(*work(64, *call))
             per_call[call] = {
-                "ms": cuda_ms(lambda: kernel(*args)), "plain_ms": cuda_ms(lambda: plain(*args)),
+                "ms": graph_ms(lambda: kernel(*args)), "plain_ms": graph_ms(lambda: plain(*args)),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             del args
@@ -262,6 +283,8 @@ def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls
     (its forward and backward, less its forward). Returns the entry."""
     import torch
 
+    from physicsinformeddiffusionmodels_tpu_torch.profile_attn import graph_ms
+
     max_err, per_call = 0.0, {}
     for b in (4, 64):
         for shape in shapes:
@@ -277,10 +300,10 @@ def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls
             print(f"  {name} B={b} {shape}: max |diff| / max |g| {worst:.2e}", flush=True)
             if b == 64 and shape in path_calls:
                 saved = save(*args)
-                plain_ms = (cuda_ms(lambda: grads_of(plain, args, dy), reps=5)
-                            - cuda_ms(lambda: plain(*args), reps=5))
+                plain_ms = (graph_ms(lambda: grads_of(plain, args, dy), reps=5)
+                            - graph_ms(lambda: plain(*args), reps=5))
                 b_ms, b_by = bound_ms(*work(b, *shape))
-                per_call[shape] = {"ms": cuda_ms(lambda: bwd(dy, *saved), reps=5),
+                per_call[shape] = {"ms": graph_ms(lambda: bwd(dy, *saved), reps=5),
                                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
                 print(f"  {name} B=64 {shape}: " + json.dumps(per_call[shape]), flush=True)
                 del saved
@@ -462,6 +485,135 @@ def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
     return counts
 
 
+def k3_phase(dev, randn, k1_args, distinct) -> tuple[dict, dict]:
+    """Phase 10. Returns K3's forward and backward entries, with the launches
+    of the stage run."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import profile_attn
+    from physicsinformeddiffusionmodels_tpu_torch.ops import linear_attention as la
+
+    def k3_args(b, n, c):
+        return [randn(b, n, c), randn(c, 768, scale=c**-0.5),
+                randn(256, c, scale=K1_GAIN * n * 256**-0.5)]
+
+    ragged = [(100, 32), (33, 64)]
+    k3 = check_kernel("linear_attention", la.linear_attention, la.linear_attention_plain,
+                      k3_args, distinct + ragged, K1_CALLS, k3_work, part=k3_term)
+    # beyond check_kernel: bf16 at every shape and both batches, fp32 at the
+    # ragged shapes at B=64
+    for b in (4, 64):
+        for shape in distinct + ragged:
+            args = k3_args(b, *shape)
+            if b == 64 and shape in ragged:
+                ref = la.linear_attention_plain(*args)
+                k3_term(args, ref)
+                k3["max_abs_err"] = max(k3["max_abs_err"], compare(
+                    la.linear_attention(*args), ref, TOL["fp32"], f"K3 B=64 {shape}"))
+            bf = [args[0].bfloat16(), *args[1:]]
+            compare(la.linear_attention(*bf), la.linear_attention_plain(*bf), TOL["bf16"],
+                    f"K3 bf16 B={b} {shape}")
+            del args, bf
+    k3b = check_backward(
+        "linear_attention_backward", la.linear_attention, la.linear_attention_plain,
+        lambda *a: (*a, *la.launch_attention_forward(*a)[1:]), la.launch_attention_backward,
+        k3_args, distinct + ragged, K1_CALLS, k3_bwd_work)
+    # the two kernels against each other: K1(x) = x + b_out + K3(LN_gamma(x))
+    worst = 0.0
+    for shape in distinct + ragged:
+        x, gamma, w_qkv, w_out, b_out = k1_args(4, *shape)
+        k1 = la.linear_attention_block(x, gamma, w_qkv, w_out, b_out)
+        mu, var = x.mean(dim=-1, keepdim=True), x.var(dim=-1, unbiased=False, keepdim=True)
+        ln = ((x - mu) / torch.sqrt(var + 1e-5) * gamma).contiguous()
+        composed = x + b_out + la.linear_attention(ln, w_qkv, w_out)
+        scale = (k1 - x).abs().max().item()
+        err = (k1 - composed).abs().max().item()
+        if scale < K1_MIN_TERM or err > TOL["fp32"] * scale:
+            raise AssertionError(f"K1 vs x + b_out + K3(LN(x)) at B=4 {shape}: max |diff| "
+                                 f"{err:.3e}, max |K1 - x| {scale:.3e}")
+        worst = max(worst, err / scale)
+    print(f"  K1 = x + b_out + K3(LN(x)): worst max |diff| / max |K1 - x| {worst:.2e}",
+          flush=True)
+    # K3's main path: the level-0 stage, its attention through
+    # PreNormResidual(SpatialLinearAttention), one eager forward and one eager
+    # forward + backward (the stage through the plain version and through K1
+    # beside it call no K3)
+    la.linear_attention.launches = la.linear_attention.backward_launches = 0
+    run = profile_attn.stage_run(dev)
+    torch.cuda.synchronize()
+    k3["launches"] = la.linear_attention.launches
+    k3b["launches"] = la.linear_attention.backward_launches
+    if (k3["launches"], k3b["launches"]) != (2, 1):
+        raise AssertionError(f"the stage run launched K3 {k3['launches']} times forward and "
+                             f"{k3b['launches']} times backward (want 2 and 1)")
+    # the stage's output through K3 against the plain version and K1 (the
+    # kernel itself is held above, at an O(1) attention term)
+    out = run["stage_k3"]
+    for name in ("stage_plain", "stage_k1"):
+        err, scale = (out - run[name]).abs().max().item(), run[name].abs().max().item()
+        if not torch.isfinite(out).all() or err > TOL["fp32"] * scale:
+            raise AssertionError(f"level-0 stage through K3 vs {name}: max |diff| {err:.3e}, "
+                                 f"max {scale:.3e}")
+        print(f"  level-0 stage through K3 vs {name}: max |diff| {err:.3e}, max {scale:.3e}",
+              flush=True)
+    if not all(torch.isfinite(g).all() for g in run["grads_k3"]):
+        raise AssertionError("level-0 stage through K3: a gradient is not finite")
+    times = profile_attn.stage_times(dev)
+    print("  level-0 stage (B=64, 64x64, C=32), device ms per call: " + json.dumps(times),
+          flush=True)
+    return k3, k3b
+
+
+def corrected_sampling_phase(dev, plain_summary: dict) -> None:
+    """Phase 11, against phase 6's ``sample_eval`` summary."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
+    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+        linear_attention_block)
+
+    cfg = RunConfig.load(RUN / "config.json")
+    x = torch.from_numpy(plain_summary["samples"])
+    physics = train.make_physics(cfg, dev)
+    xc, rc = physics.residual_correction(x.to(dev))
+    xh, rh = train.make_physics(cfg, "cpu").residual_correction(x)
+    for name, got, ref in (("x", xc, xh), ("residual", rc, rh)):
+        err, scale = (got.cpu() - ref).abs().max().item(), ref.abs().max().item()
+        if not torch.isfinite(got).all() or err > CORRECTION_TOL * scale:
+            raise AssertionError(f"residual_correction card vs CPU: {name} max |diff| "
+                                 f"{err:.3e} > {CORRECTION_TOL} x {scale:.3e}")
+    before = physics.residual(x.to(dev)).square().sum().item()
+    print(f"  one correction of phase 6's samples: sum r^2 {before:.6e} -> "
+          f"{rc.square().sum().item():.6e} (card), {rh.square().sum().item():.6e} (CPU)",
+          flush=True)
+    medians = {}
+    # M=0 runs the in-loop corrections alone: they too must move the samples
+    for mode, m in (("x0", M_CORRECTION), ("xt", M_CORRECTION), ("x0", 0), ("xt", 0)):
+        linear_attention_block.launches = group_norm_film_silu.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            s = sample_eval.evaluate(RUN, SAMPLES, "float32", "cuda", seed=0, out=tmp,
+                                     correction_mode=mode, n_correction=N_CORRECTION,
+                                     m_correction=m)
+        launches = (linear_attention_block.launches, group_norm_film_silu.launches)
+        med = s["residual_median"]
+        moved = np.abs(s["samples"] - plain_summary["samples"]).max()
+        if launches != (8 * STEPS, 38 * STEPS) or not (
+                np.isfinite(s["res_b"]).all() and RESIDUAL_RANGE[0] <= med <= RESIDUAL_RANGE[1]
+                and moved > 0):
+            raise AssertionError(f"corrected sampling ({mode}, M={m}): launches K1/K2 "
+                                 f"{launches}, median {med:.4e} (range {RESIDUAL_RANGE}), "
+                                 f"max |samples - uncorrected| {moved:.3e}")
+        medians[f"{mode} M={m}"] = f"{med:.4e}"
+        print(f"  correction_mode={mode} N={N_CORRECTION} M={m}: residual median "
+              f"{med:.4e}, mean {s['residual_mean']:.4e}, {s['seconds']:.2f} s, "
+              f"{s['samples_per_s']:.2f} samples/s, K1/K2 launches {launches[0]}/{launches[1]}, "
+              f"max |samples - uncorrected| {moved:.3e}", flush=True)
+    print(f"  residual medians: uncorrected {plain_summary['residual_median']:.4e} (phase 6), "
+          f"corrected {json.dumps(medians)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -579,6 +731,15 @@ def main() -> int:
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
     k1["launches"], k1b["launches"], k2["launches"], k2b["launches"] = train_phase(dev, smi)
+
+    ph = phase("10 K3 linear attention")
+    k3, k3b = k3_phase(dev, randn, k1_args, distinct)
+    done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}", bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
+         launches=f"{k3['launches']}/{k3b['launches']}")
+
+    ph = phase("11 corrected sampling")
+    corrected_sampling_phase(dev, summary)
+    done(ph)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (
@@ -590,11 +751,16 @@ def main() -> int:
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:530"),
         (k2b, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm_bwd.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:184"),
+        (k3, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:122"),
+        (k3b, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:180"),
     ):
         entry.update(route="cuda", source=source, replaces=replaces)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k1, k2, k1b, k2b)]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in (k1, k2, k1b, k2b, k3, k3b)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

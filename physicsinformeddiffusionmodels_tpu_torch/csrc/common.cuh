@@ -1,6 +1,6 @@
 // Shared helpers for the port's kernels: element loads/stores in fp32 or
 // bf16, block-wide reductions, and the token-tile LayerNorm of K1's
-// forward and backward.
+// forward and backward (skipped in K3's mode).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,9 +1,12 @@
 // K1: the fused pre-norm linear-attention block, out = x + b_out + LA(LN(x)),
-// on a token-major [B, N, C] activation, 8 heads x 32 dims.
+// on a token-major [B, N, C] activation, 8 heads x 32 dims; and, as a mode
+// of the same two passes, K3: the linear attention alone, out = LA(x).
 //
-// Replaces physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py
+// K1 replaces physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py
 // `_lab_fwd_kernel` (launched by `_lab_fwd_call` through pl.pallas_call),
-// the forward of `linear_attention_block`. Per token, LN over C (biased
+// the forward of `linear_attention_block`. K3 (`block` false: no LN, no
+// b_out, no residual) replaces `_fwd_kernel` of the same file (launched by
+// `_fwd_call`), the forward of `linear_attention`. Per token, LN over C (biased
 // variance, eps, scale only); qkv = LN(x) W_qkv with H = 256 hidden; q is
 // softmaxed over the head's 32 dims and scaled by 32^-1/2; k is softmaxed
 // over the tokens; v is divided by N; ctx_h = K'^T v ([32, 32] per head);
@@ -33,7 +36,10 @@
 //      the q softmax for its tokens (one warp per head, so the softmax over
 //      32 dims is a warp shuffle) and writes x + b_out + P M.
 // Sums run in a fixed order, with no atomics, so results repeat exactly.
-// Any N is handled (the ragged last tile is masked); C up to 1024.
+// Any N is handled (the ragged last tile is masked); C up to 1024. K3 runs
+// the same passes and saves the same stats; only the LN and the epilogue
+// differ, so the two kernels are held against each other on the card
+// (K1(x) = x + b_out + K3(LN(x))).
 
 #include <math.h>
 
@@ -42,8 +48,8 @@
 namespace {
 
 using pidm::from_f32;
-using pidm::ln_rows;
 using pidm::load_tile;
+using pidm::ln_rows;
 using pidm::to_f32;
 
 constexpr int kThreads = 256;
@@ -59,9 +65,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lab_ctx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ w_qkv, const float* __restrict__ w_out,
-               float* __restrict__ M, float* __restrict__ stats, int N, int C, float eps) {
+               float* __restrict__ M, float* __restrict__ stats, int N, int C, float eps,
+               bool block) {
   extern __shared__ float sm[];
-  float* xs = sm;                       // [kTileA, C]   LN'd tokens
+  float* xs = sm;                       // [kTileA, C]   LN'd (K1) or raw (K3) tokens
   float* ks = xs + kTileA * C;          // [kTileA, kDh] k, then exp(k - m)
   float* vs = ks + kTileA * kDh;        // [kTileA, kDh] v
   float* alpha = vs + kTileA * kDh;     // [kDh] rescale of this tile, then z
@@ -81,7 +88,7 @@ lab_ctx_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     __syncthreads();  // the previous tile is no longer read
     load_tile(xs, xb, n0, kTileA, N, C);
     __syncthreads();
-    ln_rows(xs, rows, C, gamma, eps);
+    if (block) ln_rows(xs, rows, C, gamma, eps);  // K3 reads the tokens as they are
     __syncthreads();
     for (int r = grp; r < rows; r += kThreads / 64) {
       const float* xr = xs + r * C;
@@ -147,9 +154,9 @@ __global__ void __launch_bounds__(kThreads)
 lab_out_kernel(const T* __restrict__ x, T* __restrict__ out,
                const float* __restrict__ gamma, const float* __restrict__ w_qkv,
                const float* __restrict__ M, const float* __restrict__ b_out, int N, int C,
-               float eps) {
+               float eps, bool block) {
   extern __shared__ float sm[];
-  float* xs = sm;                  // [kTileB, C]  LN'd tokens
+  float* xs = sm;                  // [kTileB, C]  LN'd (K1) or raw (K3) tokens
   float* ps = xs + kTileB * C;     // [kTileB, kH] q softmax
   const int b = blockIdx.y, n0 = blockIdx.x * kTileB, tid = threadIdx.x;
   const int rows = min(kTileB, N - n0);
@@ -157,7 +164,7 @@ lab_out_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   load_tile(xs, xb, n0, kTileB, N, C);
   __syncthreads();
-  ln_rows(xs, rows, C, gamma, eps);
+  if (block) ln_rows(xs, rows, C, gamma, eps);  // K3 reads the tokens as they are
   __syncthreads();
 
   float q[kTileB];
@@ -182,7 +189,10 @@ lab_out_kernel(const T* __restrict__ x, T* __restrict__ out,
     const int r = i / C, c = i % C;
     float acc = 0.f;
     for (int j = 0; j < kH; ++j) acc = fmaf(ps[r * kH + j], Mb[(long long)j * C + c], acc);
-    out[base + i] = from_f32<T>(acc + b_out[c] + to_f32(x[base + i]));
+    if (block)
+      out[base + i] = from_f32<T>(acc + b_out[c] + to_f32(x[base + i]));
+    else
+      out[base + i] = from_f32<T>(acc);
   }
 }
 
@@ -195,7 +205,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <typename T>
 int launch(const void* x, void* out, const void* gamma, const void* w_qkv,
            const void* w_out, const void* b_out, void* M, void* stats, int B, int N, int C,
-           float eps, cudaStream_t stream) {
+           float eps, bool block, cudaStream_t stream) {
   const size_t smem_a = (kTileA * C + 2 * kTileA * kDh + kDh + kDh * kDh) * sizeof(float);
   const size_t smem_b = (kTileB * C + kTileB * kH) * sizeof(float);
   cudaError_t err = allow_smem(lab_ctx_kernel<T>, smem_a);
@@ -204,13 +214,13 @@ int launch(const void* x, void* out, const void* gamma, const void* w_qkv,
   lab_ctx_kernel<T><<<dim3(kHeads, B), kThreads, smem_a, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(w_qkv), static_cast<const float*>(w_out),
-      static_cast<float*>(M), static_cast<float*>(stats), N, C, eps);
+      static_cast<float*>(M), static_cast<float*>(stats), N, C, eps, block);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lab_out_kernel<T><<<dim3((N + kTileB - 1) / kTileB, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const float*>(gamma),
       static_cast<const float*>(w_qkv), static_cast<const float*>(M),
-      static_cast<const float*>(b_out), N, C, eps);
+      static_cast<const float*>(b_out), N, C, eps, block);
   return (int)cudaGetLastError();
 }
 
@@ -227,6 +237,19 @@ extern "C" int pidm_linear_attention_block(const void* x, void* out, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16>(x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps,
-                                 st);
-  return launch<float>(x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, st);
+                                 true, st);
+  return launch<float>(x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, true, st);
+}
+
+// K3, out = LA(x): the arguments of pidm_linear_attention_block without
+// gamma, b_out and eps. M and stats are written as K1 writes them.
+extern "C" int pidm_linear_attention(const void* x, void* out, const void* w_qkv,
+                                     const void* w_out, void* M, void* stats, int B, int N,
+                                     int C, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(x, out, nullptr, w_qkv, w_out, nullptr, M, stats, B, N, C,
+                                 0.f, false, st);
+  return launch<float>(x, out, nullptr, w_qkv, w_out, nullptr, M, stats, B, N, C, 0.f, false,
+                       st);
 }

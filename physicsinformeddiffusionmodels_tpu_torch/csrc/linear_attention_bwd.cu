@@ -1,10 +1,13 @@
 // K1 backward: the VJP of the fused pre-norm linear-attention block
 // out = x + b_out + LA(LN_gamma(x)) (linear_attention.cu), on a token-major
 // [B, N, C] fp32 activation, 8 heads x 32 dims: dx, dgamma, dW_qkv, dW_out
-// and db_out from dy.
+// and db_out from dy. K3 backward, the VJP of out = LA(x), is a mode of the
+// same passes (`block` false): no LayerNorm VJP, no dgamma and no db_out;
+// the q and k/v passes read x where K1 reads x-ln, and dx = dxln.
 //
-// Replaces physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py
-// `_lab_bwd_kernel` (launched by `_lab_bwd_call` through pl.pallas_call).
+// K1 replaces physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py
+// `_lab_bwd_kernel` (launched by `_lab_bwd_call` through pl.pallas_call);
+// K3 replaces `_bwd_kernel` of the same file (launched by `_bwd_call`).
 // With P the q softmax (unscaled), K' the k softmax over the tokens,
 // vn = v / N, ctx_h = K'^T vn and M = 32^-1/2 ctx_h W_out,h (the forward's
 // scratch, kept for the backward):
@@ -50,8 +53,8 @@
 
 namespace {
 
-using pidm::ln_rows;
 using pidm::load_tile;
+using pidm::ln_rows;
 
 constexpr int kThreads = 256;
 constexpr int kDh = 32;                     // dims per head
@@ -112,9 +115,9 @@ lab_bwd_q_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                  const float* __restrict__ gamma, const float* __restrict__ w_qkv,
                  const float* __restrict__ M, float* __restrict__ xln, float* __restrict__ P,
                  float* __restrict__ dqkv, float* __restrict__ vec_part, int N, int C,
-                 float eps) {
+                 float eps, bool block) {
   extern __shared__ float sm[];
-  float* xs = sm;                // [kTile, C] LN'd tokens
+  float* xs = sm;                // [kTile, C] LN'd (K1) or raw (K3) tokens
   float* dys = xs + kTile * C;   // [kTile, C] dy
   const int b = blockIdx.y, tile = blockIdx.x, n0 = tile * kTile, tid = threadIdx.x;
   const int rows = min(kTile, N - n0);
@@ -123,14 +126,16 @@ lab_bwd_q_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   load_tile(xs, x + (long long)b * N * C, n0, kTile, N, C);
   load_tile(dys, dy + (long long)b * N * C, n0, kTile, N, C);
   __syncthreads();
-  ln_rows(xs, rows, C, gamma, eps);
+  if (block) ln_rows(xs, rows, C, gamma, eps);  // K3 reads the tokens as they are
   __syncthreads();
-  for (int i = tid; i < rows * C; i += kThreads) xln[base * C + i] = xs[i];
-  float* vp = vec_part + ((long long)b * gridDim.x + tile) * 2 * C;
-  for (int c = tid; c < C; c += kThreads) {  // this tile's share of db_out
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += dys[r * C + c];
-    vp[c] = s;
+  if (block) {  // K3's later passes read x itself
+    for (int i = tid; i < rows * C; i += kThreads) xln[base * C + i] = xs[i];
+    float* vp = vec_part + ((long long)b * gridDim.x + tile) * 2 * C;
+    for (int c = tid; c < C; c += kThreads) {  // this tile's share of db_out
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += dys[r * C + c];
+      vp[c] = s;
+    }
   }
 
   float p[kTile], dp[kTile];
@@ -258,14 +263,15 @@ lab_bwd_ctx_kernel(const float* __restrict__ stats, const float* __restrict__ w_
   }
 }
 
-// Pass 4. Thread j = h * 32 + lane owns hidden column j of k and v.
+// Pass 4. Thread j = h * 32 + lane owns hidden column j of k and v. `xln`
+// is x itself in K3's mode.
 __global__ void __launch_bounds__(kThreads)
 lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ w_qkv,
                   const float* __restrict__ stats, const float* __restrict__ xln,
                   const float* __restrict__ dctx, const float* __restrict__ row,
                   float* __restrict__ dqkv, float* __restrict__ dx,
-                  float* __restrict__ vec_part, int N, int C, float eps) {
+                  float* __restrict__ vec_part, int N, int C, float eps, bool block) {
   extern __shared__ float sm[];
   float* xs = sm;                     // [kTile, C] x-ln, then dxln
   float* xh = xs + kTile * C;         // [kTile, C] x, then x-hat
@@ -277,7 +283,7 @@ lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const long long base = (long long)b * N + n0;
 
   load_tile(xs, xln + (long long)b * N * C, n0, kTile, N, C);
-  load_tile(xh, x + (long long)b * N * C, n0, kTile, N, C);
+  if (block) load_tile(xh, x + (long long)b * N * C, n0, kTile, N, C);
   for (int i = tid; i < kHeads * kDh * kDh; i += kThreads)
     dctx_s[i / kDh * kDhP + i % kDh] = dctx[(long long)b * kHeads * kDh * kDh + i];
   __syncthreads();
@@ -360,6 +366,10 @@ lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     }
   }
   __syncthreads();
+  if (!block) {  // K3: dx = dxln
+    for (int i = tid; i < rows * C; i += kThreads) dx[base * C + i] = xs[i];
+    return;
+  }
 
   // LayerNorm VJP, one warp per token; x-hat is recomputed as pass A did it
   for (int r = h; r < rows; r += kThreads / 32) {
@@ -421,24 +431,10 @@ cudaError_t reduce_splits(const float* part, float* out, int Z, int S, int E, lo
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of workspace that pidm_linear_attention_block_bwd needs.
-extern "C" long long pidm_linear_attention_block_bwd_workspace(int B, int N, int C) {
-  return make_plan(B, N, C).total;
-}
-
-// x, dy, dx: [B, N, C] fp32; gamma, dgamma, b_out's db_out: [C]; w_qkv,
-// dw_qkv: [C, 768]; w_out, dw_out: [256, C]; M: [B, 256, C] and stats:
-// [B, 8, 1088], both as the forward wrote them; work: the workspace above.
-// Launches on `stream`, allocates nothing, returns the CUDA error.
-extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, const void* gamma,
-                                               const void* w_qkv, const void* w_out,
-                                               const void* M, const void* stats, void* dx,
-                                               void* dgamma, void* dw_qkv, void* dw_out,
-                                               void* db_out, void* work, int B, int N, int C,
-                                               float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int backward(const void* x, const void* dy, const void* gamma, const void* w_qkv,
+             const void* w_out, const void* M, const void* stats, void* dx, void* dgamma,
+             void* dw_qkv, void* dw_out, void* db_out, void* work, int B, int N, int C,
+             float eps, bool block, cudaStream_t st) {
   const Plan w = make_plan(B, N, C);
   const float* xf = static_cast<const float*>(x);
   const float* dyf = static_cast<const float*>(dy);
@@ -448,6 +444,7 @@ extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, co
   const float* stf = static_cast<const float*>(stats);
   float* ws = static_cast<float*>(work);
   const long long tokens = (long long)B * N;
+  const float* xln = block ? ws + w.xln : xf;  // what passes 4 and 5 read
 
   const size_t smem_q = 2 * kTile * C * sizeof(float);
   const size_t smem_kv = (2 * kTile * C + kTile * kQKV + kHeads * kDh * kDhP) * sizeof(float);
@@ -457,7 +454,7 @@ extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, co
 
   lab_bwd_q_kernel<<<dim3(w.nt, B), kThreads, smem_q, st>>>(
       xf, dyf, g, wqkv, static_cast<const float*>(M), ws + w.xln, ws + w.p, ws + w.dqkv,
-      ws + w.vec_part, N, C, eps);
+      ws + w.vec_part, N, C, eps, block);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dM[b] = P[b]^T dy[b]
   err = gemm_atb(ws + w.p, dyf, ws + w.dm_part, B, N, kH, C, kH, C, (long long)N * kH,
@@ -470,11 +467,11 @@ extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, co
       stf, wout, ws + w.dm, ws + w.dctx, ws + w.row, ws + w.dwout_part, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   lab_bwd_kv_kernel<<<dim3(w.nt, B), kThreads, smem_kv, st>>>(
-      xf, dyf, g, wqkv, stf, ws + w.xln, ws + w.dctx, ws + w.row, ws + w.dqkv,
-      static_cast<float*>(dx), ws + w.vec_part, N, C, eps);
+      xf, dyf, g, wqkv, stf, xln, ws + w.dctx, ws + w.row, ws + w.dqkv,
+      static_cast<float*>(dx), ws + w.vec_part, N, C, eps, block);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dW_qkv = x-ln^T [dA dk dv] over all tokens
-  err = gemm_atb(ws + w.xln, ws + w.dqkv, ws + w.dwqkv_part, 1, (int)tokens, C, kQKV, C, kQKV,
+  err = gemm_atb(xln, ws + w.dqkv, ws + w.dwqkv_part, 1, (int)tokens, C, kQKV, C, kQKV,
                  0, 0, w.rows_w, w.sw, st);
   if (err == cudaSuccess)
     err = reduce_splits(ws + w.dwqkv_part, static_cast<float*>(dw_qkv), 1, w.sw, C * kQKV,
@@ -482,6 +479,7 @@ extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, co
   if (err == cudaSuccess)
     err = reduce_splits(ws + w.dwout_part, static_cast<float*>(dw_out), 1, B, kH * C,
                         (long long)kH * C, 0, st);
+  if (!block) return (int)err;
   // db_out | dgamma: tiles -> rows -> total
   if (err == cudaSuccess)
     err = reduce_splits(ws + w.vec_part, ws + w.vec_b, B, w.nt, 2 * C, 2 * C,
@@ -491,4 +489,39 @@ extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, co
   if (err == cudaSuccess)
     err = reduce_splits(ws + w.vec_b + C, static_cast<float*>(dgamma), 1, B, C, 2 * C, 0, st);
   return (int)err;
+}
+
+}  // namespace
+
+// Floats of workspace that pidm_linear_attention_block_bwd and
+// pidm_linear_attention_bwd need.
+extern "C" long long pidm_linear_attention_block_bwd_workspace(int B, int N, int C) {
+  return make_plan(B, N, C).total;
+}
+
+// x, dy, dx: [B, N, C] fp32; gamma, dgamma, b_out's db_out: [C]; w_qkv,
+// dw_qkv: [C, 768]; w_out, dw_out: [256, C]; M: [B, 256, C] and stats:
+// [B, 8, 1088], both as the forward wrote them; work: the workspace of
+// pidm_linear_attention_block_bwd_workspace.
+// Launches on `stream`, allocates nothing, returns the CUDA error.
+extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, const void* gamma,
+                                               const void* w_qkv, const void* w_out,
+                                               const void* M, const void* stats, void* dx,
+                                               void* dgamma, void* dw_qkv, void* dw_out,
+                                               void* db_out, void* work, int B, int N, int C,
+                                               float eps, void* stream) {
+  return backward(x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
+                  work, B, N, C, eps, true, static_cast<cudaStream_t>(stream));
+}
+
+// K3 backward: x, dy, dx: [B, N, C] fp32; w_qkv, dw_qkv: [C, 768]; w_out,
+// dw_out: [256, C]; M and stats as K3's forward wrote them; work: the
+// workspace of pidm_linear_attention_block_bwd_workspace. Launches on
+// `stream`, allocates nothing, returns the CUDA error.
+extern "C" int pidm_linear_attention_bwd(const void* x, const void* dy, const void* w_qkv,
+                                         const void* w_out, const void* M, const void* stats,
+                                         void* dx, void* dw_qkv, void* dw_out, void* work,
+                                         int B, int N, int C, void* stream) {
+  return backward(x, dy, nullptr, w_qkv, w_out, M, stats, dx, nullptr, dw_qkv, dw_out,
+                  nullptr, work, B, N, C, 0.f, false, static_cast<cudaStream_t>(stream));
 }

@@ -156,7 +156,7 @@ def pidm_loss(sched: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
     """
     if x0_sampler is not None:
         raise NotImplementedError(
-            "x0_estimation='sample' (DDIM x0 sampler) is not ported yet: ROADMAP Queue 1 item 7")
+            "x0_estimation='sample' (DDIM x0 sampler) is not ported yet: ROADMAP Queue 1 item 5")
     x_t = q_sample(sched, x0, t, noise)
     x0_est, model_out = estimate_x0(sched, denoise_fn, x_t, t, pred_mode)
     if model_out_transform is not None:

@@ -1,8 +1,11 @@
 """Ancestral (DDPM) sampling (port of ``diffusion/sampling.py``).
 
-This slice ports the x0-prediction sampler with the noise suppressed at the
-last step, which is how the Darcy study samples. History, residual
-corrections, dynamic thresholding and DDIM belong to later slices.
+The x0-prediction sampler with the noise suppressed at the last step, which
+is how the Darcy study samples, with the inference-time options of the JAX
+sampler: Imagen-style dynamic thresholding, CoCoGen residual corrections
+(arXiv 2312.10527) on the x0 prediction or on the sampled state in the last
+``n_correction`` steps plus ``m_correction`` post-steps, and the per-step
+history. DDIM belongs to a later slice.
 
 JAX draws the noise from split keys inside a ``lax.scan``; here the loop is
 a Python loop over the T model calls, and the noise comes either from a
@@ -12,7 +15,7 @@ at step i, i.e. at t = T-1-i), so that a test can replay JAX's draws.
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -23,34 +26,77 @@ from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
 )
 
 Noise = Union[torch.Generator, torch.Tensor]
+DYNAMIC_THRESHOLD_PERCENTILE = 0.9
+
+
+def dynamic_threshold(x: torch.Tensor,
+                      percentile: float = DYNAMIC_THRESHOLD_PERCENTILE) -> torch.Tensor:
+    """Imagen-style dynamic thresholding: per sample, s = max(1, the
+    ``percentile`` quantile of |x|) (linear interpolation, as
+    ``jnp.quantile``); x is clipped to [-s, s] and divided by s."""
+    b = x.shape[0]
+    s = torch.quantile(x.reshape(b, -1).abs(), percentile, dim=-1)
+    s = s.clamp(min=1.0).reshape(b, *((1,) * (x.ndim - 1)))
+    return torch.clamp(x, -s, s) / s
 
 
 def p_sample_step(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, t: int,
-                  z: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+                  z: torch.Tensor | None, *, use_dynamic_threshold: bool = False,
+                  x0_correction_fn: Optional[Callable] = None,
+                  xt_correction_fn: Optional[Callable] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step x_t -> x_{t-1} with an x0-predicting ``denoise_fn(x, t_batch)``.
     ``z`` is the step's standard normal noise; it is not used at t = 0.
-    Returns (x_{t-1}, x0_pred)."""
+    In JAX's order: correct the x0 prediction and recompute the mean, add
+    the noise, correct the sample, then threshold it. Returns (x_{t-1},
+    x0_pred)."""
     tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
     x0_pred = denoise_fn(x, tb)
+    if x0_correction_fn is not None:
+        x0_pred = x0_correction_fn(x0_pred).to(x0_pred.dtype)
     mean = posterior_mean(sched, x0_pred, x, t)
     if t == 0:
-        return mean, x0_pred
-    sigma = float(np.sqrt(sched.betas[t]))  # float32 sqrt of the float32 beta
-    return mean + sigma * z, x0_pred
+        sample = mean
+    else:
+        sample = mean + float(np.sqrt(sched.betas[t])) * z  # float32 sqrt of the float32 beta
+    if xt_correction_fn is not None:
+        sample = xt_correction_fn(sample).to(sample.dtype)
+    if use_dynamic_threshold:
+        sample = dynamic_threshold(sample)
+    return sample, x0_pred
+
+
+class SampleResult(NamedTuple):
+    """x: the final sample; x0_pred: the last step's x0 prediction (x itself
+    without history, as in JAX); history and x0_history: [T, B, ...] per-step
+    samples (x_{T-1} ... x_0) and x0 predictions, or None."""
+
+    x: torch.Tensor
+    x0_pred: torch.Tensor
+    history: Optional[torch.Tensor] = None
+    x0_history: Optional[torch.Tensor] = None
 
 
 def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.Tensor,
-                  noise: Noise) -> torch.Tensor:
-    """T ancestral steps from ``x_init`` (cast to float32); returns x_0.
+                  noise: Noise, *, use_dynamic_threshold: bool = False,
+                  save_history: bool = False, correction_fn: Optional[Callable] = None,
+                  correction_mode: str = "none", n_correction: int = 0,
+                  m_correction: int = 0) -> SampleResult:
+    """T ancestral steps from ``x_init`` (cast to float32).
 
     ``noise`` is a ``torch.Generator`` on x_init's device, or a
-    [T, *x_init.shape] tensor of per-step draws.
+    [T, *x_init.shape] tensor of per-step draws. ``correction_fn`` (x ->
+    corrected x) is applied while t < ``n_correction``, to the x0 prediction
+    (``correction_mode`` 'x0') or to the sampled state ('xt'), and
+    ``m_correction`` more times after the loop.
     """
     T = sched.n_steps
     if isinstance(noise, torch.Tensor) and tuple(noise.shape) != (T, *x_init.shape):
         raise ValueError(f"noise must be [{T}, {', '.join(map(str, x_init.shape))}], "
                          f"got {tuple(noise.shape)}")
+    use_corr = correction_fn is not None and correction_mode in ("x0", "xt") and n_correction > 0
     x = x_init.float()
+    history, x0_history = [], []
     for i, t in enumerate(range(T - 1, -1, -1)):
         if t == 0:
             z = None
@@ -58,5 +104,20 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
             z = noise[i].to(device=x.device, dtype=x.dtype)
         else:
             z = torch.randn(x.shape, generator=noise, device=x.device, dtype=x.dtype)
-        x, _ = p_sample_step(sched, denoise_fn, x, t, z)
-    return x
+        corr = use_corr and t < n_correction
+        x, x0_pred = p_sample_step(
+            sched, denoise_fn, x, t, z, use_dynamic_threshold=use_dynamic_threshold,
+            x0_correction_fn=correction_fn if corr and correction_mode == "x0" else None,
+            xt_correction_fn=correction_fn if corr and correction_mode == "xt" else None)
+        if save_history:
+            history.append(x)
+            x0_history.append(x0_pred)
+    if m_correction > 0 and correction_fn is None:
+        raise ValueError("m_correction > 0 requires a correction_fn")
+    final = x
+    for _ in range(m_correction):
+        x = correction_fn(x)
+    if not save_history:
+        return SampleResult(x=x, x0_pred=final)
+    return SampleResult(x=x, x0_pred=x0_history[-1], history=torch.stack(history),
+                        x0_history=torch.stack(x0_history))

@@ -10,7 +10,9 @@ dict key by name, with these changes:
     Flax's (the inverse of ``models/reference_port.py``'s transform);
   * the attention modules a ``PreNormResidual`` wraps sit at the top of the
     Flax tree (``Attention_0``, ``FrameAttention_0/1``) and under ``fn``
-    here.
+    here. A ``PreNormResidual`` that is itself the top module (such as
+    ``PreNormResidual(dim, SpatialLinearAttention(dim))``) keeps ``fn`` in
+    both trees, so its parameters map by name.
 Every other leaf (``gn_scale``, ``w_qkv``, ``res_kernel``, ...) keeps its
 name and layout.
 """

@@ -12,7 +12,8 @@ maps a Flax checkpoint onto the state dict by name. The 3x3, 7x7, strided
 and transposed convolutions are ``torch.nn.functional`` convolutions, as
 they are XLA convolutions outside any Pallas kernel in the JAX package; the
 GroupNorm-FiLM-SiLU after every 3x3 conv (K2) and the linear-attention
-block (K1) are the CUDA kernels of ``ops/``.
+block (K1) are the CUDA kernels of ``ops/``. ``SpatialLinearAttention``
+(the attention alone, K3) is here too; no UNet configuration builds it.
 
 This slice builds the Darcy configuration: zero padding, no
 self-conditioning, no sigmoid head, frame attention at F == 1 only. The
@@ -31,7 +32,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
-from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import linear_attention_block
+from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+    linear_attention,
+    linear_attention_block,
+)
 
 
 def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
@@ -168,6 +172,28 @@ class ResnetBlock(nn.Module):
             return h + x
         dt = self.dtype or x.dtype
         return h + (x.to(dt) @ self.res_kernel.to(dt) + self.res_bias.to(dt))
+
+
+class SpatialLinearAttention(nn.Module):
+    """Linear attention over the pixel tokens of a [..., H, W, C] map plus an
+    output bias: kernel K3. No UNet configuration builds it (the UNet uses
+    the fused ``LinearAttentionBlock``); ``PreNormResidual`` around it is
+    the unfused form of that block."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None):
+        super().__init__()
+        hidden = heads * dim_head
+        self.w_qkv = _lecun(dim, 3 * hidden)
+        self.w_out = _lecun(hidden, dim)
+        self.b_out = nn.Parameter(torch.zeros(dim))
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+
+    def forward(self, x):
+        *lead, h, w, c = x.shape
+        dt = self.dtype or x.dtype
+        tokens = x.reshape(-1, h * w, c).to(dt).contiguous()
+        out = linear_attention(tokens, self.w_qkv, self.w_out, self.heads, self.dim_head)
+        return out.reshape(*lead, h, w, -1) + self.b_out.to(dt)
 
 
 class LinearAttentionBlock(nn.Module):

@@ -48,8 +48,12 @@ _SIGNATURES = {
     # x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
     # work, B, N, C, eps, stream
     "pidm_linear_attention_block_bwd": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
-    # B, N, C -> floats of workspace
+    # B, N, C -> floats of workspace (K1's and K3's backward)
     "pidm_linear_attention_block_bwd_workspace": ([_I] * 3, _L),
+    # x, out, w_qkv, w_out, M, stats, B, N, C, bf16, stream
+    "pidm_linear_attention": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # x, dy, w_qkv, w_out, M, stats, dx, dw_qkv, dw_out, work, B, N, C, stream
+    "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
 }
 
 

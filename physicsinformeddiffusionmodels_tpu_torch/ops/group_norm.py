@@ -144,7 +144,7 @@ def group_norm_film_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
         if x.dtype != torch.float32:
             raise NotImplementedError(
-                "the K2 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 6")
+                "the K2 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 3")
         return _GroupNormFilmSilu.apply(*args, groups, eps)
     return launch_forward(*args, groups, eps)[0]
 

@@ -6,8 +6,9 @@
 with Neumann BC residuals (+-dp/dn on the four edges) as two more channels
 and the static two-patch source field f_s. Calling the evaluator gives the
 ``PhysicsTerms`` the training loss takes; gradients flow through the FD
-operators. Residual corrections and the residual gradient belong to a later
-slice.
+operators. ``residual_correction`` is the CoCoGen correction step of the
+sampler (arXiv 2312.10527); the residual gradient of guided sampling
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -95,3 +96,48 @@ class DarcyResidual:
         bc1[:, :, 0] = sign * p_d1[:, :, 0]
         bc1[:, :, -1] = -sign * p_d1[:, :, -1]
         return torch.stack([eq0, bc0, bc1], dim=-1).reshape(B, H * W, 3)
+
+    def _jacobian_max(self, K: torch.Tensor) -> torch.Tensor:
+        """[B] max over (i, j) of the residual's Jacobian d r / d p, for the
+        permeability K [B, H, W].
+
+        eq0 is linear in p for fixed K, so the nonzero entries for pixel
+        (i, j) are closed-form stencil rows: the same column (i' varies)
+        -K D00[i, i'] - K_d0 D0[i, i'], plus the diagonal of the d1 terms;
+        the same row (j' varies, off the diagonal) -K D11[j, j'] - K_d1
+        D1[j, j']; and the constant +-D0 / +-D1 rows of the BC channels.
+        [B, H, W, H] and [B, H, W, W] per term, as the JAX package builds
+        it, never the dense [3HW, HW] Jacobian.
+        """
+        g = self.grads
+        n0, n1 = g.Dc0.shape[1], g.Dc1.shape[1]
+        D0, D00 = g.Dc0[:n0], g.Dc0[n0:]
+        D1, D11 = g.Dc1[:n1], g.Dc1[n1:]
+        K_d0, K_d1, _, _ = g.first_second_pair(K)
+        colvals = -K[..., None] * D00[None, :, None, :] - K_d0[..., None] * D0[None, :, None, :]
+        diag_extra = (-K * torch.diagonal(D11)[None, None, :]
+                      - K_d1 * torch.diagonal(D1)[None, None, :])
+        eye = torch.eye(n0, dtype=K.dtype, device=K.device)[None, :, None, :]
+        colvals = colvals + diag_extra[..., None] * eye
+        rowvals = -K[..., None] * D11[None, None, :, :] - K_d1[..., None] * D1[None, None, :, :]
+        off_diag = ~torch.eye(n1, dtype=torch.bool, device=K.device)[None, None, :, :]
+        rowvals = torch.where(off_diag, rowvals, -torch.inf)
+        m = torch.maximum(colvals.amax(dim=(1, 2, 3)), rowvals.amax(dim=(1, 2, 3)))
+        bc_max = torch.maximum(D0.abs().max(), D1.abs().max())
+        return torch.maximum(m, bc_max)
+
+    def residual_correction(self, x: torch.Tensor,
+                            n_steps: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+        """``n_steps`` CoCoGen correction steps on an NHWC (p, K) state:
+        p <- p - eps * d(sum r^2)/dp, eps = 1e-6 / min(max dr/dp, 1e12); K is
+        kept. Returns (x corrected, its residual). The step is taken on a
+        detached gradient, whether or not the caller records autograd."""
+        x = x.float()
+        for _ in range(n_steps):
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                dr = torch.autograd.grad(self.residual(xx).square().sum(), xx)[0][..., 0]
+            eps = 1e-6 / self._jacobian_max(x[..., 1]).clamp(max=1e12)
+            p = x[..., 0] - eps[:, None, None] * dr.detach()
+            x = torch.stack([p, x[..., 1]], dim=-1)
+        return x, self.residual(x)

@@ -3,13 +3,18 @@ by their PDE residual (port of the Darcy part of the JAX ``sample_eval.py``).
 
     python -m physicsinformeddiffusionmodels_tpu_torch.sample_eval \\
         --model-dir results/darcy_300k_fp32head/portable --no-samples 64 \\
-        --compute-dtype float32 [--device cpu] [--seed 0] [--out DIR]
+        --compute-dtype float32 [--device cpu] [--seed 0] [--out DIR] \\
+        [--correction-mode {none,x0,xt} --n-correction N --m-correction M] \\
+        [--dynamic-threshold {on,off}] [--create-gif]
 
 Writes ``<out>/validation/sample_statistics.csv`` (per-sample mean |residual|
 and their mean, in the format of the JAX ``sample_eval.py``) and one CSV per sample and
 channel (``<out>/validation/sample_<s>/sample_<c>.csv``). The default
 ``--out`` is a fresh ``trained_models/<run name>/evaluation_torch[_i]``.
-Images and GIFs are not written in this slice.
+The correction and thresholding options override the run's config, as in
+the JAX ``sample_eval.py``. ``--create-gif`` also writes each sample's PNGs and its
+denoising GIFs (``sample_<s>_<c>.png``, ``sample_<s>/sample_<c>.gif``); it
+needs matplotlib and imageio.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
 )
+from physicsinformeddiffusionmodels_tpu_torch.utils import viz
 from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device, set_fp32_exact
 
 
@@ -55,14 +61,9 @@ def load_run(model_dir: str | Path, step: int | None = None,
 
 
 def _check_supported(cfg: RunConfig) -> None:
-    corrections = cfg.correction_mode in ("x0", "xt") and (cfg.N_correction or cfg.M_correction)
-    missing = [name for name, on in (
-        ("residual corrections", corrections),
-        ("residual-gradient guidance", cfg.residual_grad_guidance),
-        ("dynamic thresholding", cfg.use_dynamic_threshold),
-    ) if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if cfg.residual_grad_guidance:
+        raise NotImplementedError(
+            "not ported yet: residual-gradient guidance (ROADMAP Queue 1 item 6)")
 
 
 def _fresh_dir(base: Path) -> Path:
@@ -75,9 +76,12 @@ def _fresh_dir(base: Path) -> Path:
 
 @torch.no_grad()
 def sample_darcy(cfg: RunConfig, model: UNet, no_samples: int, seed: int,
-                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Draw ``no_samples`` fields; returns (samples [n, P, P, 2], residual
-    [n, P*P, 3]). All randomness comes from one generator seeded with
+                 device: torch.device, save_history: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Draw ``no_samples`` fields with the config's dynamic thresholding and
+    CoCoGen corrections (one ``residual_correction`` step per correction);
+    returns (samples [n, P, P, 2], residual [n, P*P, 3], the [T, n, P, P, 2]
+    history or None). All randomness comes from one generator seeded with
     ``seed`` on ``device``."""
     _check_supported(cfg)
     sched = create_schedule(cfg.diff_steps)
@@ -86,21 +90,34 @@ def sample_darcy(cfg: RunConfig, model: UNet, no_samples: int, seed: int,
         pixels_at_boundary=cfg.pixels_at_boundary, reverse_d1=cfg.reverse_d1,
         domain_length=cfg.domain_length, periodic=cfg.bcs == "periodic", device=device,
     )
+    corrections = cfg.correction_mode in ("x0", "xt") and (cfg.N_correction or cfg.M_correction)
     P = cfg.pixels_per_dim
     gen = torch.Generator(device=device).manual_seed(seed)
     x_init = torch.randn((no_samples, P, P, cfg.output_channels), generator=gen, device=device)
-    x = p_sample_loop(sched, model, x_init, gen)
-    return x, physics.residual(x)
+    result = p_sample_loop(
+        sched, model, x_init, gen, use_dynamic_threshold=cfg.use_dynamic_threshold,
+        save_history=save_history,
+        correction_fn=(lambda x: physics.residual_correction(x)[0]) if corrections else None,
+        correction_mode=cfg.correction_mode, n_correction=cfg.N_correction,
+        m_correction=cfg.M_correction)
+    return result.x, physics.residual(result.x), result.history
 
 
-def write_darcy_outputs(step_dir: Path, samples: np.ndarray, res_b: np.ndarray) -> None:
+def write_darcy_outputs(step_dir: Path, samples: np.ndarray, res_b: np.ndarray,
+                        history: np.ndarray | None = None) -> None:
     """Per-sample CSVs (``sample_<s>/sample_<c>.csv``) and
-    ``sample_statistics.csv`` under ``step_dir``."""
+    ``sample_statistics.csv`` under ``step_dir``; with a [T, n, P, P, C]
+    ``history``, also each sample's PNGs and denoising GIFs."""
     for s in range(samples.shape[0]):
         (step_dir / f"sample_{s}").mkdir(parents=True, exist_ok=True)
         for c in range(samples.shape[-1]):
             np.savetxt(step_dir / f"sample_{s}" / f"sample_{c}.csv", samples[s, :, :, c],
                        delimiter=",")
+            if history is not None:
+                viz.save_field_image(samples[s, :, :, c], step_dir / f"sample_{s}_{c}.png",
+                                     title=f"residual: {res_b[s]:.2e}")
+                viz.image_history_to_gif(history[:, s, :, :, c],
+                                         step_dir / f"sample_{s}" / f"sample_{c}.gif")
     with open(step_dir / "sample_statistics.csv", "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["Sample Index", "Residuals (abs)"])
@@ -111,13 +128,24 @@ def write_darcy_outputs(step_dir: Path, samples: np.ndarray, res_b: np.ndarray) 
 
 def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | None = None,
              device: str | torch.device | None = None, seed: int = 0,
-             out: str | Path | None = None, step: int | None = None) -> dict:
+             out: str | Path | None = None, step: int | None = None, *,
+             correction_mode: str | None = None, n_correction: int | None = None,
+             m_correction: int | None = None, dynamic_threshold: bool | None = None,
+             create_gif: bool = False) -> dict:
     """Load, sample, score and write; returns a summary dict with the
-    per-sample residuals (``res_b``), their median and mean, the sampling
-    seconds and samples/s, the output directory and the device."""
+    per-sample residuals (``res_b``) and the samples (``samples``, on the
+    host), their residual median and mean, the sampling seconds and
+    samples/s, the correction settings, the output directory and the
+    device. The correction and thresholding arguments that are not None
+    override the run's config."""
     dev = resolve_device(device)
     set_fp32_exact()
     cfg, model, ckpt_step = load_run(model_dir, step, compute_dtype, dev)
+    for name, value in (("correction_mode", correction_mode), ("N_correction", n_correction),
+                        ("M_correction", m_correction),
+                        ("use_dynamic_threshold", dynamic_threshold)):
+        if value is not None:
+            setattr(cfg, name, value)
     out_dir = Path(out) if out is not None else _fresh_dir(
         Path("trained_models") / cfg.name / "evaluation_torch")
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -126,15 +154,20 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    samples, residual = sample_darcy(cfg, model, no_samples, seed, dev)
+    samples, residual, history = sample_darcy(cfg, model, no_samples, seed, dev,
+                                              save_history=create_gif)
     res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()  # host copy waits for the device
     seconds = time.perf_counter() - t0
 
-    write_darcy_outputs(out_dir / "validation", samples.float().cpu().numpy(), res_b)
+    samples = samples.float().cpu().numpy()
+    write_darcy_outputs(out_dir / "validation", samples, res_b,
+                        None if history is None else history.float().cpu().numpy())
     summary = {
         "model_dir": str(model_dir), "checkpoint_step": ckpt_step, "no_samples": no_samples,
         "seed": seed, "compute_dtype": compute_dtype or cfg.compute_dtype,
-        "diff_steps": cfg.diff_steps, "device": str(dev),
+        "diff_steps": cfg.diff_steps, "correction_mode": cfg.correction_mode,
+        "N_correction": cfg.N_correction, "M_correction": cfg.M_correction,
+        "use_dynamic_threshold": cfg.use_dynamic_threshold, "device": str(dev),
         "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "residual_median": float(np.nanmedian(res_b)),
         "residual_mean": float(np.nanmean(res_b)),
@@ -145,7 +178,7 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
           f"median {summary['residual_median']:.3e}")
     print(f"Evaluation done ({seconds:.2f} s, {summary['samples_per_s']:.2f} samples/s); "
           f"outputs in {out_dir}")
-    return {**summary, "res_b": res_b, "out_dir": out_dir}
+    return {**summary, "res_b": res_b, "samples": samples, "out_dir": out_dir}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -158,13 +191,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="output directory")
+    # inference-time overrides of the run's config, as in the JAX sample_eval.py
+    ap.add_argument("--correction-mode", default=None, choices=["none", "x0", "xt"])
+    ap.add_argument("--n-correction", type=int, default=None,
+                    help="correct in the last N steps")
+    ap.add_argument("--m-correction", type=int, default=None,
+                    help="M correction steps after the loop")
+    ap.add_argument("--dynamic-threshold", default=None, choices=["on", "off"])
+    ap.add_argument("--create-gif", action="store_true",
+                    help="also write PNGs and denoising GIFs (needs matplotlib and imageio)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    threshold = None if args.dynamic_threshold is None else args.dynamic_threshold == "on"
     evaluate(args.model_dir, args.no_samples, args.compute_dtype, args.device, args.seed,
-             args.out, args.step)
+             args.out, args.step, correction_mode=args.correction_mode,
+             n_correction=args.n_correction, m_correction=args.m_correction,
+             dynamic_threshold=threshold, create_gif=args.create_gif)
 
 
 if __name__ == "__main__":

@@ -68,19 +68,19 @@ _COLUMNS = ["step", "time", "loss", "loss_data", "residual_mean_abs", "loss_test
 def check_supported(cfg: RunConfig) -> None:
     """Raise for the options of the JAX driver that the port does not train yet."""
     if cfg.gov_eqs != "darcy":
-        raise NotImplementedError("mechanics training is not ported yet: ROADMAP Queue 1 item 9")
+        raise NotImplementedError("mechanics training is not ported yet: ROADMAP Queue 1 item 8")
     if cfg.residual_grad_guidance:
         raise NotImplementedError(
-            "residual-gradient guidance is not ported yet: ROADMAP Queue 1 item 7")
+            "residual-gradient guidance is not ported yet: ROADMAP Queue 1 item 6")
     if cfg.x0_estimation != "mean":
         raise NotImplementedError(
-            "x0_estimation='sample' (DDIM) is not ported yet: ROADMAP Queue 1 item 7")
+            "x0_estimation='sample' (DDIM) is not ported yet: ROADMAP Queue 1 item 5")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "bf16 training is not ported yet (the backward kernels are fp32): "
-            "ROADMAP Queue 1 item 6")
+            "ROADMAP Queue 1 item 3")
     if cfg.mesh_tp > 1 or cfg.mesh_slices > 1 or (cfg.mesh_dp or 1) > 1:
-        raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 12")
+        raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 11")
 
 
 def build_model(cfg: RunConfig) -> UNet:
@@ -169,7 +169,8 @@ def run_darcy(cfg: RunConfig, device=None):
                         "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
             logger.flush(_COLUMNS)
         if (it % cfg.sample_freq == 0 and it > 0) or it == cfg.train_iterations:
-            samples, residual = sample_darcy(cfg, state.ema, cfg.no_samples, cfg.seed + it, dev)
+            samples, residual, _ = sample_darcy(cfg, state.ema, cfg.no_samples,
+                                                cfg.seed + it, dev)
             res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
             logger.log({"residual_mean_abs_samples": float(np.nanmean(res_b)),
                         "residual_median_abs_samples": float(np.nanmedian(res_b))}, step=it)

@@ -269,17 +269,20 @@ def flax_params_from_torch(state_dict: dict) -> dict:
 
 
 def _adam_state(model: torch.nn.Module, optimizer) -> dict:
-    """Adam's per-parameter state under the parameters' names."""
+    """Adam's per-parameter state under the parameters' names, and the
+    optimizer's schedule count."""
     state = optimizer.state_dict()["state"]
     out = {}
     for i, (name, _) in enumerate(n for n in model.named_parameters() if n[1].requires_grad):
         if i in state:
             out[name] = {k: np.asarray(v.detach().cpu().numpy()) if torch.is_tensor(v) else v
                          for k, v in state[i].items()}
-    return {"format": "torch.optim.Adam", "state": out}
+    return {"format": "torch.optim.Adam", "state": out, "count": optimizer.count}
 
 
-def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict) -> None:
+def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict, count: int) -> None:
+    """Load Adam's state and the schedule count; ``count`` is used when the
+    checkpoint predates saving it."""
     if saved.get("format") != "torch.optim.Adam":
         raise ValueError(f"unknown optimizer state format {saved.get('format')!r}")
     device = next(model.parameters()).device
@@ -292,6 +295,7 @@ def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict) -> None:
                         for k, v in entry.items()}
     optimizer.load_state_dict({"state": state,
                                "param_groups": optimizer.state_dict()["param_groups"]})
+    optimizer.count = int(saved.get("count", count))
 
 
 def save_checkpoint(directory: str | os.PathLike, step: int, *, model: torch.nn.Module,
@@ -325,7 +329,8 @@ def restore_train_state(directory: str | os.PathLike, state) -> tuple[object, in
     label of the save, whose update is already in the weights, so the run
     continues at label + 1. Returns (state, start step); (state, 0) when
     there is no checkpoint. A checkpoint without EMA restores the EMA as the
-    weights; one without optimizer state keeps the fresh optimizer."""
+    weights; one without optimizer state keeps the fresh optimizer, whose
+    schedule count is 0, as the JAX package keeps a fresh ``opt_state``."""
     from physicsinformeddiffusionmodels_tpu_torch.models.convert import (
         torch_state_dict_from_flax,
     )
@@ -338,9 +343,13 @@ def restore_train_state(directory: str | os.PathLike, state) -> tuple[object, in
     state.model.load_state_dict(params)
     state.ema.load_state_dict(torch_state_dict_from_flax(raw["ema_params"])
                               if raw.get("ema_params") else params)
-    if raw.get("opt_state"):
-        _load_adam_state(state.model, state.optimizer, raw["opt_state"])
     state.step = int(raw["step"]) + 1
+    if raw.get("opt_state"):
+        # checkpoints written before the count was saved ran the schedule
+        # on the step, which continues at state.step
+        _load_adam_state(state.model, state.optimizer, raw["opt_state"], state.step)
+    else:
+        state.optimizer.count = 0
     print(f"Resumed from {path} at step {state.step}")
     return state, state.step
 

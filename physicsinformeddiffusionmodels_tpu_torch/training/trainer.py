@@ -30,8 +30,12 @@ class ClipAdam:
     module's parameters: the gradients are scaled by grad_clip / ||g|| only
     when ||g|| > grad_clip (no epsilon added to the norm), then Adam
     (b1 0.9, b2 0.999, eps 1e-8) takes the step with the learning rate of
-    the step's count: constant, or a cosine decay to ``final_frac`` * lr
-    over ``total_steps`` (``optax.cosine_decay_schedule``)."""
+    the optimizer's own count: constant, or a cosine decay to ``final_frac``
+    * lr over ``total_steps`` (``optax.cosine_decay_schedule``). Like optax's
+    count, which lives in ``opt_state``, ``count`` starts at 0 with the
+    optimizer, goes up by one a step, and is saved and restored with the
+    Adam state, so a run resumed without optimizer state starts the
+    schedule again."""
 
     def __init__(self, params, learning_rate: float = 1e-4, grad_clip: float = 1.0,
                  schedule: str = "constant", total_steps: int = 0, final_frac: float = 0.1):
@@ -43,6 +47,7 @@ class ClipAdam:
         self.learning_rate, self.grad_clip = learning_rate, grad_clip
         self.schedule, self.total_steps, self.final_frac = schedule, total_steps, final_frac
         self.adam = torch.optim.Adam(self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.count = 0
 
     def lr_at(self, count: int) -> float:
         if self.schedule == "constant":
@@ -55,15 +60,17 @@ class ClipAdam:
         self.adam.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self, count: int) -> None:
-        """Clip the gradients in place, then one Adam step at ``lr_at(count)``."""
+    def step(self) -> None:
+        """Clip the gradients in place, then one Adam step at ``lr_at(count)``;
+        the count goes up by one."""
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm > self.grad_clip, self.grad_clip / norm, torch.ones_like(norm))
         torch._foreach_mul_(grads, scale)
         for group in self.adam.param_groups:
-            group["lr"] = self.lr_at(count)
+            group["lr"] = self.lr_at(self.count)
         self.adam.step()
+        self.count += 1
 
     def state_dict(self) -> dict:
         return self.adam.state_dict()
@@ -101,7 +108,7 @@ def train_step(state: TrainState, loss_fn: Callable, *args, ema_mu: float = 0.99
     state.optimizer.zero_grad()
     loss, aux = loss_fn(state.model, *args)
     loss.backward()
-    state.optimizer.step(state.step)
+    state.optimizer.step()
     ema_update_after(state.ema, state.model, state.step, mu=ema_mu, ema_start=ema_start)
     state.step += 1
     return aux

@@ -47,9 +47,9 @@ def test_port_imports_nothing_of_jax():
                           capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("models.unet", "train", "data.datasets", "data.darcy_generator",
-                 "training.trainer", "diffusion.losses"):
+                 "training.trainer", "diffusion.losses", "profile_attn", "utils.viz"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
-    assert len(report["modules"]) >= 29
+    assert len(report["modules"]) >= 31
     assert report["banned"] == []
 
 
@@ -115,13 +115,35 @@ def test_cli_writes_jax_format_statistics(tiny_run, tmp_path):
 
 def test_cli_refuses_unported_sampling_options(tiny_run, tmp_path):
     cfg = JaxRunConfig.load(tiny_run / "config.json")
-    cfg.correction_mode, cfg.N_correction = "x0", 2
+    cfg.residual_grad_guidance = True
     run = tmp_path / "run"
     (run / "model").mkdir(parents=True)
     (run / "model" / "checkpoint_7.msgpack").symlink_to(tiny_run / "model/checkpoint_7.msgpack")
     cfg.save(run / "config.json")
-    with pytest.raises(NotImplementedError, match="residual corrections"):
+    with pytest.raises(NotImplementedError, match="residual-gradient guidance"):
         sample_eval.evaluate(run, 1, device="cpu", out=tmp_path / "eval")
+
+
+def test_cli_runs_corrected_thresholded_sampling_and_writes_gifs(tiny_run, tmp_path):
+    args = ["--model-dir", str(tiny_run), "--no-samples", "2", "--device", "cpu", "--seed", "3"]
+    sample_eval.main([*args, "--out", str(tmp_path / "plain")])
+    out = tmp_path / "corrected"
+    sample_eval.main([*args, "--out", str(out), "--correction-mode", "x0", "--n-correction",
+                      "2", "--m-correction", "1", "--dynamic-threshold", "on", "--create-gif"])
+    settings = json.loads((out / "eval_settings.json").read_text())
+    assert (settings["correction_mode"], settings["N_correction"], settings["M_correction"],
+            settings["use_dynamic_threshold"]) == ("x0", 2, 1, True)
+
+    def sample(run):
+        return np.loadtxt(run / "validation" / "sample_0" / "sample_0.csv", delimiter=",")
+
+    # the same seed and draws: the corrections and the threshold changed the samples
+    assert np.isfinite(sample(out)).all()
+    assert np.abs(sample(out) - sample(tmp_path / "plain")).max() > 0
+    for s in range(2):
+        for c in range(2):
+            assert (out / "validation" / f"sample_{s}_{c}.png").stat().st_size > 0
+            assert (out / "validation" / f"sample_{s}" / f"sample_{c}.gif").stat().st_size > 0
 
 
 def test_profile_helpers_group_kernels_and_merge_busy_intervals():

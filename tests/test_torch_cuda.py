@@ -17,8 +17,10 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
     group_norm_film_silu_plain,
 )
 from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+    linear_attention,
     linear_attention_block,
     linear_attention_block_plain,
+    linear_attention_plain,
 )
 
 H = 256
@@ -262,3 +264,98 @@ def test_kernels_keep_the_unet_in_the_autograd_graph(cuda):
     for name, p in model.named_parameters():
         if name in names:
             assert p.grad is not None and p.grad.abs().max().item() > 0, name
+
+
+# K3, the linear attention alone (a mode of K1's kernels)
+
+
+def _la_inputs(b, n, c, seed=1):
+    """x, W_qkv and W_out as K1's inputs draw them (W_out at LA_GAIN * N)."""
+    x, _, w_qkv, w_out, _ = _lab_inputs(b, n, c, seed)
+    return x, w_qkv, w_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
+def test_linear_attention_k3_kernel_matches_plain(cuda, n, c):
+    args = [_t(a, cuda) for a in _la_inputs(4, n, c)]
+    before = linear_attention.launches
+    got = linear_attention(*args)
+    torch.cuda.synchronize()
+    assert linear_attention.launches == before + 1
+    ref = linear_attention_plain(*args)
+    # the attention term is the whole output, O(1); fp32, another summation order
+    assert ref.abs().max().item() >= 1.0
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    got_bf16 = linear_attention(args[0].bfloat16(), *args[1:])
+    assert got_bf16.dtype == torch.bfloat16
+    # bf16: the output's rounding
+    torch.testing.assert_close(got_bf16, linear_attention_plain(args[0].bfloat16(), *args[1:]),
+                               atol=1e-2, rtol=1e-2)
+
+
+def _check_la_backward(cuda, n, c, b=4):
+    args = [_t(a, cuda) for a in _la_inputs(b, n, c)]
+    dy = torch.randn(b, n, c, generator=torch.Generator().manual_seed(n + c)).to(cuda)
+    _, ref = _grads(linear_attention_plain, args, dy)
+    fwd, bwd = linear_attention.launches, linear_attention.backward_launches
+    _, got = _grads(linear_attention, args, dy)
+    torch.cuda.synchronize()
+    assert (linear_attention.launches, linear_attention.backward_launches) == (fwd + 1, bwd + 1)
+    _assert_grads_close(got, ref, ("dx", "dw_qkv", "dw_out"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
+def test_linear_attention_k3_backward_matches_plain(cuda, n, c):
+    _check_la_backward(cuda, n, c)
+
+
+def _check_composition(cuda, n, c, b=4):
+    """K1(x) = x + b_out + K3(LN_gamma(x)), the LN computed by torch: the two
+    kernels held against each other."""
+    x, gamma, w_qkv, w_out, b_out = [_t(a, cuda) for a in _lab_inputs(b, n, c)]
+    k1 = linear_attention_block(x, gamma, w_qkv, w_out, b_out)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    ln = ((x - mu) / torch.sqrt(var + 1e-5) * gamma).contiguous()
+    k3 = x + b_out + linear_attention(ln, w_qkv, w_out)
+    torch.cuda.synchronize()
+    scale = (k1 - x).abs().max().item()
+    err = (k1 - k3).abs().max().item()
+    assert scale >= 1.0 and err <= 1e-4 * scale, f"max |diff| {err:.3e}, max |K1 - x| {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32)])
+def test_k1_equals_x_plus_bias_plus_k3_of_layer_norm(cuda, n, c):
+    _check_composition(cuda, n, c)
+
+
+# one-line breaks of K3's mode, each of which a check above must catch:
+# name -> (file, text replaced, replacement, the check that must fail)
+K3_MUTANTS = {
+    "K3 adds the residual": (
+        "linear_attention.cu", "out[base + i] = from_f32<T>(acc);",
+        "out[base + i] = from_f32<T>(acc + to_f32(x[base + i]));", "forward"),
+    # K3 has no gamma: the first row of W_out stands in for it
+    "K3 applies the LN": (
+        "linear_attention.cu", "    if (block) ln_rows(xs, rows, C, gamma, eps);",
+        "    ln_rows(xs, rows, C, block ? gamma : w_out, eps);", "composition"),
+    "K3 backward drops the row term": (
+        "linear_attention_bwd.cu", "kp[r] * (dkp - rj)", "kp[r] * dkp", "backward"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(K3_MUTANTS))
+def test_k3_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+    filename, old, new, check = K3_MUTANTS[mutant]
+    with _patched_kernels(monkeypatch, tmp_path, filename, old, new):
+        with pytest.raises(AssertionError):
+            if check == "forward":
+                test_linear_attention_k3_kernel_matches_plain(cuda, 1024, 32)
+            elif check == "composition":
+                _check_composition(cuda, 1024, 32)
+            else:
+                _check_la_backward(cuda, 1024, 32)

@@ -140,7 +140,7 @@ def test_timestep_samplers():
 
 def test_pidm_loss_refuses_the_ddim_sampler():
     x = torch.zeros(2, 4, 4, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tl.pidm_loss(ts.create_schedule(10), x, torch.zeros(2, dtype=torch.long), x,
                      denoise_fn=lambda a, b: a, weights=tl.LossWeights(),
                      x0_sampler=lambda *a: None)
