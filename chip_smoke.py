@@ -29,11 +29,11 @@ the script exits non-zero:
      card (kernels) against CPU (plain versions); (c) the loss of the 300k
      EMA weights over 8 validation batches of 64, inside EMA_LOSS_BAND, its
      data part inside EMA_DATA_LOSS_BAND and its mean |residual| inside
-     EMA_RESIDUAL_BAND; (d)
-     200 steps at B=64, full width, fp32, fresh Adam, with the launch counts
-     zeroed just before and read just after (K1 and K2 forward and backward
-     once per UNet call: 8 and 38 per step), finite losses and a mean of the
-     last 50 below LAST50_MAX; (e) a checkpoint save and restore (EMA
+     EMA_RESIDUAL_BAND; (d) 200 steps at B=64, full width, fp32, fresh
+     Adam, with the launch counts zeroed just before and read just after
+     (K1 and K2 forward and backward once per UNet call: 8 and 38 per step,
+     none on bf16 x), finite losses and a mean of the last 50 below
+     LAST50_MAX; (e) a checkpoint save and restore (EMA
      weights back bit for bit, and their forward under cuDNN's
      deterministic algorithms bit-equal to the saved weights'); (f) the
      training CLI for 3 steps, and ``sample_eval`` of its checkpoint.
@@ -55,8 +55,37 @@ the script exits non-zero:
      corrections alone): residual median in the same range, launches K1
      800 and K2 3800 (the corrections call no model), samples that differ
      from phase 6's.
+Phases 9 to 14 share one temporary directory with phase 9's data.
+ 12. the bf16 backward kernels of K1, K2 and K3 against torch autograd
+     through their plain versions on the same bf16 input, at every path
+     shape (and the ragged ones) at B=4 and B=64: dx within BF16_DX_TOL of
+     its largest entry (one bf16 rounding of the output), the fp32
+     parameter gradients within BF16_PARAM_TOL; timed at B=64.
+ 13. bf16 training, the study's recipe (bf16 compute, fp32 head): (a) one
+     train step on the card and on the CPU from the 300k EMA weights, held
+     to the two sides' own gap between their bf16 and fp32 step on the same
+     inputs (the loss within twice the larger gap, the whole gradient
+     within twice the card's, each parameter's gradient within 6x;
+     STEP_BF16_*), with K1 and K2 launched on bf16 x but the fp32 head's
+     two K2 (BF16_STEP_LAUNCHES);
+     (b) the loss of the 300k EMA weights in bf16 (8 validation batches of
+     64), loss and mean |residual| within 0.5x-2x of the JAX package's bf16
+     + fp32-head reference (EMA_BF16_LOSS_BAND, EMA_BF16_RESIDUAL_BAND);
+     (c) the main path: 200 steps at B=64 from those weights, fresh Adam,
+     with the launch counts zeroed just before and read just after (K1 8
+     and K2 38 forward and backward per step, all on bf16 x but the fp32
+     head's two K2 calls, forward and backward), finite losses, last-50
+     mean below LAST50_MAX; (d) the training CLI with
+     ``--compute-dtype bfloat16 --fp32-head`` for 3 steps, and
+     ``sample_eval`` of its checkpoint in bf16, 64 samples.
+ 14. K5, the lane-packed bf16 GroupNorm-FiLM-SiLU, against its plain
+     version and against K2's forward on the same bf16 input (within
+     K5_TOL of the largest output) at [64, 4096, 32], [64, 1024, 64] and
+     [64, 256, 128]; then K5's path, ``profile_gn`` at the level-0 shape,
+     with K5's launch count zeroed just before and read just after.
 The last three lines are a JSON object with each kernel's launches (counted
-on the training path for K1 and K2, on the stage run of phase 10 for K3),
+on the fp32 training path for K1 and K2, on the bf16 one for their
+backward on bf16 x, on the stage run of phase 10 for K3, on ``profile_gn`` for K5),
 error and times, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
 """
@@ -75,10 +104,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 RUN = ROOT / "results" / "darcy_300k_fp32head" / "portable"
-# NVIDIA H100 SXM data sheet: HBM bandwidth and the fp32 (non-tensor-core)
-# rate; the fp32 path runs with TF32 off, so fp32 is the rate that applies
+# NVIDIA H100 SXM data sheet: HBM bandwidth, the fp32 (non-tensor-core)
+# rate and the dense bf16 tensor-core rate. The fp32 path runs with TF32
+# off, so fp32 is the rate that applies to it. On bf16 input the TPU
+# kernels multiply in bf16 (``md = x_ref.dtype``, pallas_attention.py:543),
+# so the same work on bf16 input is held to the bf16 rate, whatever
+# precision the port's kernels compute in.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
 # kernel vs plain version, fp32: the same arithmetic summed in another order
 # (streamed token softmax, tiled reductions); bf16: the output's rounding
 TOL = {"fp32": 1e-4, "bf16": 1e-2}
@@ -122,11 +155,42 @@ EMA_RESIDUAL_BAND = (0.0155, 0.0619)
 # 200 steps from those weights: the mean of the last 50 losses below 3x the
 # JAX run's mean training loss over its last 20k iterations (0.037)
 TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 200, 64, 0.11
+# the launches of one train step: (forward, forward on bf16 x, backward,
+# backward on bf16 x) of K1, then of K2, one of each per UNet call. In bf16
+# with the fp32 head every call takes bf16 x but the two K2 calls of the
+# head's fp32 ResnetBlock.
+FP32_STEP_LAUNCHES = ((8, 0, 8, 0), (38, 0, 38, 0))
+BF16_STEP_LAUNCHES = ((8, 8, 8, 8), (38, 36, 38, 36))
 N_TRAIN, N_VALID = 256, 64
 # phase 11: CoCoGen corrections in the last N steps and M post-steps; one
 # correction card vs CPU, x and residual each within CORRECTION_TOL of the
 # largest entry (fp32; the FD sums run in another order)
 N_CORRECTION, M_CORRECTION, CORRECTION_TOL = 10, 5, 1e-5
+# phase 12: bf16 backward kernel vs autograd through the plain version on
+# the same bf16 input: dx is written in bf16 (one rounding, and the inputs'
+# own rounding carried through the fp32 sums in another order), the
+# parameter gradients stay fp32
+BF16_DX_TOL, BF16_PARAM_TOL = 2e-2, 1e-3
+# phase 13a, bf16 train step card vs CPU, as tests/test_torch_bf16_train.py
+# holds the port against JAX (the two sides round about as much as each
+# other, independently, and a gradient that nearly cancels carries a
+# rounding of several % of its norm): the loss within STEP_BF16_LOSS x the
+# larger of the two sides' own bf16 rounding (a scalar's rounding is one
+# draw a side; with the fp32 losses equal this bounds each bf16 loss by its
+# own rounding, no more); (multiple of the card's own rounding, floor as a
+# share of the CPU norm) for the whole gradient and each parameter's (L2)
+STEP_BF16_LOSS, STEP_BF16_WHOLE, STEP_BF16_EACH = 2, (2, 1e-3), (6, 1e-3)
+# phase 13b: 0.5x-2x the JAX package's bf16 + fp32-head loss and mean
+# |residual| of the 300k EMA weights on this script's validation set (8
+# batches of 64 on the CPU, tests/test_torch_ema_loss.py run as a script:
+# 0.019340 and 0.036840; PERF.md). No bf16 data-loss reference is recorded;
+# the data loss is printed.
+EMA_BF16_LOSS_BAND, EMA_BF16_RESIDUAL_BAND = (0.00967, 0.03868), (0.01842, 0.07368)
+# phase 14: K5 against its plain version and against K2's forward, bf16
+# outputs: within K5_TOL of the largest output (a bf16 rounding; the
+# one-pass variance against K2's shifted sums)
+K5_TOL = 1e-2
+K5_SHAPES = [(4096, 32), (1024, 64), (256, 128)]
 
 
 def phase(name: str):
@@ -150,8 +214,9 @@ def compare(got, ref, tol: float, what: str) -> float:
     return err
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -169,23 +234,25 @@ def k2_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
     return nbytes, 10.0 * b * n * c
 
 
-def k1_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
-    """Bytes (x and dy read, dx written, weights read and their gradients
-    written, the forward's M and stats read) and matmul flops of K1's VJP:
-    the qkv projection again, dP = M dy, dM = P^T dy, dxln and dW_qkv, the
-    k/v path within the heads, and dctx and dW_out per row."""
-    nbytes = 4 * (3 * b * n * c + 2 * (4 * h * c + 2 * c) + b * h * c
-                  + b * 8 * (dh * dh + 2 * dh))
+def k1_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32,
+                elt: int = 4) -> tuple[float, float]:
+    """Bytes (x and dy read, dx written, ``elt`` bytes each; weights read and
+    their gradients written, the forward's M and stats read, fp32) and
+    matmul flops of K1's VJP: the qkv projection again, dP = M dy, dM = P^T
+    dy, dxln and dW_qkv, the k/v path within the heads, and dctx and dW_out
+    per row."""
+    nbytes = elt * 3 * b * n * c + 4 * (2 * (4 * h * c + 2 * c) + b * h * c
+                                        + b * 8 * (dh * dh + 2 * dh))
     flops = (2 * b * n * (3 * h * c + h * c + h * c + 3 * h * c + 3 * h * c + 2 * h * dh)
              + 2 * b * 2 * h * dh * c)
     return nbytes, flops
 
 
-def k2_bwd_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
-    """Bytes (x and dy read, dx written, parameters read and their gradients
-    written) and ~25 flops an element (x-hat, z, the SiLU derivative, the
-    sums S0 and S1, and dx)."""
-    nbytes = 4 * (3 * b * n * c + 4 * c + (4 * b * c if film else 0))
+def k2_bwd_work(b: int, n: int, c: int, film: bool, elt: int = 4) -> tuple[float, float]:
+    """Bytes (x and dy read, dx written, ``elt`` bytes each; parameters read
+    and their gradients written, fp32) and ~25 flops an element (x-hat, z,
+    the SiLU derivative, the sums S0 and S1, and dx)."""
+    nbytes = elt * 3 * b * n * c + 4 * (4 * c + (4 * b * c if film else 0))
     return nbytes, 25.0 * b * n * c
 
 
@@ -196,11 +263,18 @@ def k3_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, 
     return nbytes - 4 * 2 * c, flops
 
 
-def k3_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
+def k3_bwd_work(b: int, n: int, c: int, h: int = 256, dh: int = 32,
+                elt: int = 4) -> tuple[float, float]:
     """K1 backward's bytes without gamma, b_out and their gradients, and its
     operation count (its matmul flops count no LayerNorm VJP)."""
-    nbytes, flops = k1_bwd_work(b, n, c, h, dh)
+    nbytes, flops = k1_bwd_work(b, n, c, h, dh, elt)
     return nbytes - 4 * 2 * 2 * c, flops
+
+
+def k5_work(b: int, n: int, c: int) -> tuple[float, float]:
+    """Bytes (bf16 x read and out written once, the folded fp32 scale and
+    shift read) and ~10 flops an element (the two sums, the affine, SiLU)."""
+    return 2 * 2 * b * n * c + 4 * 2 * b * c, 10.0 * b * n * c
 
 
 def k3_term(args, ref) -> float:
@@ -229,7 +303,7 @@ def check_kernel(name, kernel, plain, make_args, shapes_b4, path_calls, work, pa
     in each fp32 comparison. Returns the kernel's entry."""
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch.profile_attn import graph_ms
+    from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
 
     def held(args, what):
         ref = plain(*args)
@@ -275,34 +349,45 @@ def grads_of(fn, args, dy):
     return torch.autograd.grad(fn(*leaves), [a for a in leaves if a is not None], dy)
 
 
-def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls, work):
+def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls, work,
+                   bf16=False):
     """Hold the backward kernel, reached through autograd on ``kernel``,
-    against torch autograd through ``plain`` at B=4 and B=64 for each shape.
-    At B=64 time the backward kernel alone (``bwd(dy, *save(*args))``, the
-    forward's saved tensors made once) beside the plain version's backward
-    (its forward and backward, less its forward). Returns the entry."""
+    against torch autograd through ``plain`` at B=4 and B=64 for each shape
+    (x and dy in bf16 when ``bf16``; then dx is held to BF16_DX_TOL and the
+    parameter gradients to BF16_PARAM_TOL, else each to GRAD_TOL). At B=64
+    time the backward kernel alone (``bwd(dy, *save(*args))``, the forward's
+    saved tensors made once) beside the plain version's backward (its
+    forward and backward, less its forward). Returns the entry."""
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch.profile_attn import graph_ms
+    from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
 
+    tols = (BF16_DX_TOL, BF16_PARAM_TOL) if bf16 else (GRAD_TOL, GRAD_TOL)
+    elt, peak = (2, PEAK_BF16_FLOPS) if bf16 else (4, PEAK_FP32_FLOPS)
     max_err, per_call = 0.0, {}
     for b in (4, 64):
         for shape in shapes:
             args = make_args(b, *shape)
-            dy = torch.randn(args[0].shape, device=args[0].device)
+            if bf16:
+                args[0] = args[0].bfloat16()
+            dy = torch.randn(args[0].shape, device=args[0].device).to(args[0].dtype)
             worst = 0.0
             for i, (g, r) in enumerate(zip(grads_of(kernel, args, dy), grads_of(plain, args, dy))):
-                scale, err = r.abs().max().item(), (g - r).abs().max().item()
-                if not torch.isfinite(g).all() or err > GRAD_TOL * scale:
+                if g.dtype != r.dtype:
+                    raise AssertionError(f"{name} B={b} {shape} gradient {i}: {g.dtype}, "
+                                         f"autograd gives {r.dtype}")
+                tol = tols[min(i, 1)]
+                scale, err = r.abs().max().item(), (g.float() - r.float()).abs().max().item()
+                if not torch.isfinite(g).all() or err > tol * scale:
                     raise AssertionError(f"{name} B={b} {shape} gradient {i}: max |diff| "
-                                         f"{err:.3e} > {GRAD_TOL} x max |g| {scale:.3e}")
+                                         f"{err:.3e} > {tol} x max |g| {scale:.3e}")
                 max_err, worst = max(max_err, err), max(worst, err / max(scale, 1e-30))
             print(f"  {name} B={b} {shape}: max |diff| / max |g| {worst:.2e}", flush=True)
             if b == 64 and shape in path_calls:
                 saved = save(*args)
                 plain_ms = (graph_ms(lambda: grads_of(plain, args, dy), reps=5)
                             - graph_ms(lambda: plain(*args), reps=5))
-                b_ms, b_by = bound_ms(*work(b, *shape))
+                b_ms, b_by = bound_ms(*work(b, *shape, elt=elt), peak)
                 per_call[shape] = {"ms": graph_ms(lambda: bwd(dy, *saved), reps=5),
                                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
                 print(f"  {name} B=64 {shape}: " + json.dumps(per_call[shape]), flush=True)
@@ -311,29 +396,45 @@ def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls
     # the entry covers one UNet backward's calls: times and bounds summed
     totals = {k: sum(per_call[call][k] for call in path_calls)
               for k in ("ms", "plain_ms", "bound_ms")}
-    nbytes, flops = (sum(w) for w in zip(*(work(64, *call) for call in path_calls)))
+    nbytes, flops = (sum(w) for w in zip(*(work(64, *call, elt=elt) for call in path_calls)))
     return {"name": name, "max_abs_err": max_err, **totals,
-            "bound_by": bound_ms(nbytes, flops)[1], "library_ms": None}
+            "bound_by": bound_ms(nbytes, flops, peak)[1], "library_ms": None}
 
 
-def train_phase(dev, smi: str) -> tuple[int, int, int, int]:
-    """Phase 9, in a temporary directory that is removed afterwards. Returns
-    the launch counts of the 200-step run: K1 forward, K1 backward, K2
-    forward, K2 backward."""
-    with tempfile.TemporaryDirectory(prefix="pidm_smoke_") as tmp:
-        return _train_phase(Path(tmp), dev, smi)
+def launch_counts() -> tuple:
+    """K1's and K2's launch counts: (forward, forward on bf16 x, backward,
+    backward on bf16 x) of each."""
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
+    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+        linear_attention_block)
+
+    return tuple((f.launches, f.bf16_launches, f.backward_launches, f.bf16_backward_launches)
+                 for f in (linear_attention_block, group_norm_film_silu))
 
 
-def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
+def zero_launch_counts() -> None:
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
+    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
+        linear_attention_block)
+
+    for f in (linear_attention_block, group_norm_film_silu):
+        f.launches = f.bf16_launches = f.backward_launches = f.bf16_backward_launches = 0
+
+
+def launches_of(steps: int, per_step: tuple) -> tuple:
+    return tuple(tuple(steps * v for v in row) for row in per_step)
+
+
+def train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
+    """Phase 9; its data stays in ``tmp`` for phase 13. Returns the launch
+    counts of the 200-step run: K1 forward, K1 backward, K2 forward, K2
+    backward."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
     from physicsinformeddiffusionmodels_tpu_torch.data.darcy_generator import generate_dataset
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
-    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
-    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
-        linear_attention_block)
     from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
         restore_train_state, save_checkpoint)
     from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
@@ -409,8 +510,7 @@ def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
     losses = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    linear_attention_block.launches = linear_attention_block.backward_launches = 0
-    group_norm_film_silu.launches = group_norm_film_silu.backward_launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
@@ -418,11 +518,10 @@ def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
         losses.append(aux.loss.detach())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = (linear_attention_block.launches, linear_attention_block.backward_launches,
-              group_norm_film_silu.launches, group_norm_film_silu.backward_launches)
-    want = (8 * TRAIN_STEPS, 8 * TRAIN_STEPS, 38 * TRAIN_STEPS, 38 * TRAIN_STEPS)
-    if counts != want:
-        raise AssertionError(f"launches K1 fwd/bwd, K2 fwd/bwd {counts}, want {want}")
+    got, want = launch_counts(), launches_of(TRAIN_STEPS, FP32_STEP_LAUNCHES)
+    if got != want:
+        raise AssertionError(f"launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) {got}, want {want}")
+    counts = (got[0][0], got[0][2], got[1][0], got[1][2])
     losses = torch.stack(losses).cpu().numpy()
     last50 = float(losses[-50:].mean())
     if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
@@ -483,6 +582,228 @@ def _train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
         raise AssertionError(f"sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_after_4_steps=f"{summary['residual_median']:.3e}")
     return counts
+
+
+def step_grads(loss_fn, model, batch, t, noise):
+    """(loss, gradient of each parameter or None) of one training loss."""
+    import torch
+
+    loss, _ = loss_fn(model, batch, t, noise)
+    return loss.item(), torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+
+
+def bf16_step_phase(ds, dev) -> None:
+    """Phase 13a on the training set ``ds``: one bf16 + fp32-head train step
+    at B=8 from the 300k EMA weights, on the card and on the CPU."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    ph = phase("13a one bf16 train step, card vs CPU")
+    runs = {(dtype, d): sample_eval.load_run(RUN, compute_dtype=dtype, device=d)
+            for dtype in ("bfloat16", "float32") for d in (dev, "cpu")}
+    cfg = runs["bfloat16", dev][0]
+    models = {k: run[1].train() for k, run in runs.items()}
+    sched = create_schedule(cfg.diff_steps)
+    loss_fns = {d: train.build_darcy_loss_fn(sched, train.make_physics(cfg, d), cfg)
+                for d in (dev, "cpu")}
+    rng = np.random.default_rng(13)
+    idx, t = rng.integers(0, len(ds), 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
+    batch = torch.from_numpy(ds.stacked()[idx])
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    on = {dev: (batch.to(dev), t.to(dev), noise.to(dev)), "cpu": (batch, t, noise)}
+    before = launch_counts()
+    loss, grads = step_grads(loss_fns[dev], models["bfloat16", dev], *on[dev])
+    torch.cuda.synchronize()
+    # the activations reach K1 and K2 in bf16 (all but the fp32 head's K2)
+    launched = tuple(tuple(a - b for a, b in zip(*rows)) for rows in zip(launch_counts(), before))
+    if launched != BF16_STEP_LAUNCHES:
+        raise AssertionError(f"bf16 step launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) "
+                             f"{launched}, want {BF16_STEP_LAUNCHES}")
+    loss32, grads32 = step_grads(loss_fns[dev], models["float32", dev], *on[dev])
+    loss_cpu, grads_cpu = step_grads(loss_fns["cpu"], models["bfloat16", "cpu"], *on["cpu"])
+    loss32_cpu = step_grads(loss_fns["cpu"], models["float32", "cpu"], *on["cpu"])[0]
+    # the fp32 losses agree to STEP_LOSS_RTOL; the bf16 loss lies within
+    # STEP_BF16_LOSS x the larger of the two sides' own bf16 rounding (their
+    # gap to their fp32 loss); the whole gradient (every parameter's as one
+    # vector, L2) within STEP_BF16_WHOLE and each parameter's (L2) within
+    # STEP_BF16_EACH of the card's own rounding. The CPU's rounding is no
+    # steadier a yardstick: a tensor's rounding is one draw a side (it failed
+    # a correct card on one LayerNorm scale at 13x its CPU draw). The card's
+    # own widens with a fault of the card's bf16 backward alone, which is
+    # phase 12's to catch: each bf16 backward kernel against its plain
+    # version on the same inputs.
+    rel32 = abs(loss32 - loss32_cpu) / abs(loss32_cpu)
+    limit = STEP_BF16_LOSS * max(abs(loss - loss32), abs(loss_cpu - loss32_cpu))
+    if not np.isfinite(loss) or rel32 > STEP_LOSS_RTOL or abs(loss - loss_cpu) > limit:
+        raise AssertionError(f"bf16 train step loss card {loss:.8e} vs CPU {loss_cpu:.8e}: "
+                             f"limit {limit:.3e}; fp32 card {loss32:.8e} vs CPU "
+                             f"{loss32_cpu:.8e}: relative {rel32:.2e}")
+    worst, kept = 0.0, []
+    for (name, _), g, g32, gc in zip(models["bfloat16", dev].named_parameters(), grads, grads32,
+                                     grads_cpu):
+        if (g is None) != (gc is None):
+            raise AssertionError(f"{name}: gradient on one device only")
+        if g is None:  # the guidance-conditioning modules, unused by this loss
+            continue
+        if g.dtype != torch.float32 or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: a {g.dtype} gradient, finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+        kept.append((g.cpu(), g32.cpu(), gc))
+        k, floor = STEP_BF16_EACH
+        err = (g.cpu() - gc).norm().item()
+        lim = k * (g - g32).norm().item() + floor * gc.norm().item()
+        if err > lim:
+            raise AssertionError(f"{name}: bf16 card vs CPU gradient |diff| {err:.3e} > "
+                                 f"{lim:.3e} (L2)")
+        worst = max(worst, err / max(lim, 1e-30))
+    compared = len(kept)
+    g, g32, gc = (torch.cat([t[i].flatten() for t in kept]) for i in range(3))
+    k, floor = STEP_BF16_WHOLE
+    whole = (g - gc).norm().item()
+    whole_lim = k * (g - g32).norm().item() + floor * gc.norm().item()
+    if whole > whole_lim:
+        raise AssertionError(f"bf16 card vs CPU, whole gradient |diff| {whole:.3e} > "
+                             f"{whole_lim:.3e} (L2)")
+    done(ph, loss_card=f"{loss:.8e}", loss_cpu=f"{loss_cpu:.8e}", loss_fp32_card=f"{loss32:.8e}",
+         loss_fp32_cpu=f"{loss32_cpu:.8e}", loss_share_of_limit=f"{abs(loss - loss_cpu) / limit:.2f}",
+         grads_compared=compared, whole_gradient_share_of_limit=f"{whole / whole_lim:.2f}",
+         worst_tensor_share_of_limit=f"{worst:.2f}", launches=launched)
+
+
+def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int]:
+    """Phase 13 on phase 9's data in ``tmp``. Returns the bf16 backward
+    launch counts of the 200-step bf16 run: K1, K2."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer, resident_train_step)
+
+    ds, ds_valid = load_darcy_dataset(tmp / "train"), load_darcy_dataset(tmp / "valid")
+    # the run's own config: bf16 compute with the fp32 head
+    cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="bfloat16", device=dev)
+    if (cfg.compute_dtype, cfg.fp32_head, model.fp32_head) != ("bfloat16", True, True):
+        raise AssertionError(f"{RUN} is not a bf16 + fp32-head run: {cfg.compute_dtype}, "
+                             f"fp32_head {cfg.fp32_head}")
+    sched = create_schedule(cfg.diff_steps)
+    loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
+
+    bf16_step_phase(ds, dev)
+
+    ph = phase("13b loss of the 300k EMA weights, bf16 + fp32 head")
+    data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model.eval()
+    with torch.no_grad():
+        auxes = [train.eval_loss(loss_fn, model, data_v, cfg.diff_steps, gen) for _ in range(8)]
+    ema_loss = float(np.mean([a.loss.item() for a in auxes]))
+    ema_data = float(np.mean([a.data_loss.item() for a in auxes]))
+    ema_res = float(np.mean([a.residual_mean_abs.item() for a in auxes]))
+    if not (EMA_BF16_LOSS_BAND[0] <= ema_loss <= EMA_BF16_LOSS_BAND[1]
+            and EMA_BF16_RESIDUAL_BAND[0] <= ema_res <= EMA_BF16_RESIDUAL_BAND[1]):
+        raise AssertionError(f"bf16 EMA-weight loss {ema_loss:.4e} (band {EMA_BF16_LOSS_BAND}), "
+                             f"mean |residual| {ema_res:.4e} (band {EMA_BF16_RESIDUAL_BAND})")
+    done(ph, mean_loss=f"{ema_loss:.4e}", mean_data_loss=f"{ema_data:.4e}",
+         mean_residual_mean_abs=f"{ema_res:.4e}")
+
+    ph = phase("13c bf16 training (main path)")
+    model.train()
+    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
+    data = torch.as_tensor(ds.stacked(), device=dev)
+    step_gen = torch.Generator(device=dev)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
+                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
+        losses.append(aux.loss.detach())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got, want = launch_counts(), launches_of(TRAIN_STEPS, BF16_STEP_LAUNCHES)
+    if got != want:
+        raise AssertionError(f"bf16 launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) {got}, "
+                             f"want {want}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    last50 = float(losses[-50:].mean())
+    if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
+        raise AssertionError(f"bf16 training losses: finite {np.isfinite(losses).all()}, "
+                             f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del state, model
+    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
+         steps_per_s=f"{TRAIN_STEPS / seconds:.3f}",
+         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
+         peak_memory_gib=f"{peak_gib:.2f}", first_loss=f"{losses[0]:.4e}",
+         last50_mean=f"{last50:.4e}", k1_fwd_bf16_bwd_bf16="/".join(map(str, got[0])),
+         k2_fwd_bf16_bwd_bf16="/".join(map(str, got[1])))
+    print(f"  {smi}", flush=True)
+
+    ph = phase("13d bf16 training CLI and bf16 sample_eval of its checkpoint")
+    out = tmp / "runs_bf16"
+    train.main(["--iterations", "3", "--batch-size", "8", "--data-dir", str(tmp / "train"),
+                "--valid-data-dir", str(tmp / "valid"), "--output-dir", str(out),
+                "--sample-freq", "1000", "--test-eval-freq", "2", "--log-freq", "1",
+                "--no-samples", "4", "--name", "smoke_bf16", "--compute-dtype", "bfloat16",
+                "--fp32-head"])
+    run = out / "smoke_bf16"
+    saved = json.loads((run / "config.json").read_text())
+    if (saved["compute_dtype"], saved["fp32_head"]) != ("bfloat16", True) or not (
+            run / "model" / "checkpoint_3.msgpack").exists():
+        raise AssertionError(f"bf16 training CLI outputs under {run}: config {saved}")
+    summary = sample_eval.evaluate(run, SAMPLES, "bfloat16", "cuda", seed=0, out=tmp / "eval_bf16")
+    if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
+        raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
+    done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
+         sampling_seconds=f"{summary['seconds']:.2f}")
+    return got[0][3], got[1][3]
+
+
+def k5_phase(dev, randn) -> dict:
+    """Phase 14. Returns K5's entry, with the launches of its path."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import profile_gn
+    from physicsinformeddiffusionmodels_tpu_torch.ops import group_norm as gn
+
+    max_err = 0.0
+    for n, c in K5_SHAPES:
+        x = randn(64, n, c, scale=2.0, shift=0.5).bfloat16()
+        args = [x, randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1), randn(64, c, scale=0.1),
+                randn(64, c, scale=0.1)]
+        out = gn.group_norm_film_silu_packed(*args)
+        if out.dtype != torch.bfloat16 or out.shape != x.shape:
+            raise AssertionError(f"K5 gave {out.dtype} {tuple(out.shape)}")
+        for ref_name, ref in (("plain version", gn.group_norm_film_silu_packed_plain(*args)),
+                              ("K2 forward", gn.group_norm_film_silu(*args))):
+            scale = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.isfinite(out).all() or err > K5_TOL * scale:
+                raise AssertionError(f"K5 vs {ref_name} at [64, {n}, {c}]: max |diff| {err:.3e} "
+                                     f"> {K5_TOL} x {scale:.3e}")
+            print(f"  K5 vs {ref_name} [64, {n}, {c}]: max |diff| {err:.3e}, max |out| "
+                  f"{scale:.3e}", flush=True)
+            if ref_name == "plain version":
+                max_err = max(max_err, err)
+        del x, args, out
+    # K5's path: profile_gn at the level-0 shape
+    gn.group_norm_film_silu_packed.launches = 0
+    r = profile_gn.profile(dev)
+    launches = gn.group_norm_film_silu_packed.launches
+    if launches == 0 or r["k5_vs_k2_max_abs_diff"] > K5_TOL * r["max_abs_out"]:
+        raise AssertionError(f"profile_gn: K5 launches {launches}, max |K5 - K2| "
+                             f"{r['k5_vs_k2_max_abs_diff']:.3e} (max |out| {r['max_abs_out']:.3e})")
+    print("  profile_gn: " + json.dumps(r), flush=True)
+    b_ms, b_by = bound_ms(*k5_work(profile_gn.B, profile_gn.N, profile_gn.C))
+    return {"name": "group_norm_film_silu_packed", "launches": launches, "max_abs_err": max_err,
+            "ms": r["k5_ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def k3_phase(dev, randn, k1_args, distinct) -> tuple[dict, dict]:
@@ -668,6 +989,7 @@ def main() -> int:
                 randn(b, c, scale=0.1) if film else None]
 
     distinct = list(dict.fromkeys(K1_CALLS))
+    k2_shapes = [(n, c, f) for n, c in distinct + [(100, 32)] for f in (True, False)]
     ph = phase("3 K1 linear-attention block")
     k1 = check_kernel("linear_attention_block", linear_attention_block,
                       linear_attention_block_plain, k1_args,
@@ -676,9 +998,7 @@ def main() -> int:
 
     ph = phase("4 K2 GroupNorm-FiLM-SiLU")
     k2 = check_kernel("group_norm_film_silu", group_norm_film_silu,
-                      group_norm_film_silu_plain, k2_args,
-                      [(n, c, f) for n, c in distinct + [(100, 32)] for f in (True, False)],
-                      K2_CALLS, k2_work)
+                      group_norm_film_silu_plain, k2_args, k2_shapes, K2_CALLS, k2_work)
     done(ph, max_abs_err=f"{k2['max_abs_err']:.3e}")
 
     ph = phase("5 checkpoint forward")
@@ -723,23 +1043,53 @@ def main() -> int:
     done(ph, max_abs_err=f"{k1b['max_abs_err']:.3e}")
 
     ph = phase("8 K2 backward")
-    k2_shapes = [(n, c, f) for n, c in distinct + [(100, 32)] for f in (True, False)]
     k2b = check_backward(
         "group_norm_film_silu_backward", group_norm_film_silu, group_norm_film_silu_plain,
         lambda *a: (*a, gn.launch_forward(*a)[1]), gn.launch_backward, k2_args, k2_shapes,
         K2_CALLS, k2_bwd_work)
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
-    k1["launches"], k1b["launches"], k2["launches"], k2b["launches"] = train_phase(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="pidm_smoke_") as tmp:
+        k1["launches"], k1b["launches"], k2["launches"], k2b["launches"] = train_phase(
+            Path(tmp), dev, smi)
 
-    ph = phase("10 K3 linear attention")
-    k3, k3b = k3_phase(dev, randn, k1_args, distinct)
-    done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}", bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
-         launches=f"{k3['launches']}/{k3b['launches']}")
+        ph = phase("10 K3 linear attention")
+        k3, k3b = k3_phase(dev, randn, k1_args, distinct)
+        done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}",
+             bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
+             launches=f"{k3['launches']}/{k3b['launches']}")
 
-    ph = phase("11 corrected sampling")
-    corrected_sampling_phase(dev, summary)
-    done(ph)
+        ph = phase("11 corrected sampling")
+        corrected_sampling_phase(dev, summary)
+        done(ph)
+
+        ph = phase("12 bf16 backward kernels")
+        ragged = [(100, 32), (33, 64)]
+        k1b16 = check_backward(
+            "linear_attention_block_backward_bf16", linear_attention_block,
+            linear_attention_block_plain,
+            lambda *a: (*a[:4], *la.launch_forward(*a)[1:]), la.launch_backward,
+            k1_args, distinct + ragged, K1_CALLS, k1_bwd_work, bf16=True)
+        k2b16 = check_backward(
+            "group_norm_film_silu_backward_bf16", group_norm_film_silu,
+            group_norm_film_silu_plain, lambda *a: (*a, gn.launch_forward(*a)[1]),
+            gn.launch_backward, k2_args, k2_shapes, K2_CALLS, k2_bwd_work, bf16=True)
+        k3b16 = check_backward(
+            "linear_attention_backward_bf16", la.linear_attention, la.linear_attention_plain,
+            lambda *a: (*a, *la.launch_attention_forward(*a)[1:]), la.launch_attention_backward,
+            lambda b, n, c: [k1_args(b, n, c)[i] for i in (0, 2, 3)], distinct + ragged,
+            K1_CALLS, k3_bwd_work, bf16=True)
+        print("  K3 backward, bf16, one UNet backward's calls at B=64: " + json.dumps(
+            {k: k3b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}), flush=True)
+        done(ph, k1_max_abs_err=f"{k1b16['max_abs_err']:.3e}",
+             k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
+             k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
+
+        k1b16["launches"], k2b16["launches"] = bf16_train_phase(Path(tmp), dev, smi)
+
+    ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
+    k5 = k5_phase(dev, randn)
+    done(ph, max_abs_err=f"{k5['max_abs_err']:.3e}", launches=k5["launches"])
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (
@@ -755,12 +1105,18 @@ def main() -> int:
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:122"),
         (k3b, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention_bwd.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:180"),
+        (k1b16, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:530"),
+        (k2b16, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:184"),
+        (k5, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm_packed.cu",
+         "scripts/profile_gn.py:53"),
     ):
         entry.update(route="cuda", source=source, replaces=replaces)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (k1, k2, k1b, k2b, k3, k3b)]}))
+                                  for e in (k1, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // K2 backward: the VJP of GroupNorm -> FiLM -> SiLU (group_norm.cu) on a
-// [B, N, C] fp32 activation: dx, dgamma, dbeta and, with FiLM, dscale and
-// dshift from dy.
+// [B, N, C] fp32 or bf16 activation: dx, dgamma, dbeta and, with FiLM,
+// dscale and dshift from dy. With bf16 x (the `bf16` flag), dy is bf16 and
+// dx is written as bf16, rounded once; every read of x and dy goes through
+// pidm::to_f32, and the sums and parameter gradients stay fp32.
 //
 // Replaces the backward of physicsinformeddiffusionmodels_tpu/ops/
 // pallas_kernels.py's `_gn_film_silu_pallas`, `_gn_bwd`, which the JAX
@@ -18,7 +20,7 @@
 // rows, and t1, t2 sum gamma (scale + 1) S0 and S1 over a group's channels.
 //
 // Bound on the H100: memory. About 25 flops per element against 12 bytes
-// (x and dy read, dx written, fp32). Like the forward, a row does not fit a
+// (x and dy read, dx written, fp32; 6 in bf16). Like the forward, a row does not fit a
 // block, so this takes four launches, each summing in a fixed order with no
 // atomics (the results repeat exactly):
 //   1. gn_bwd_partial, grid (token splits, channel chunks of 256, B): S0 and
@@ -37,6 +39,9 @@
 #include "common.cuh"
 
 namespace {
+
+using pidm::from_f32;
+using pidm::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;        // elements per thread in the apply pass
@@ -60,7 +65,8 @@ Plan make_plan(int B, int N, int C) {
 
 // Mean and rstd of group g of row b, from the forward's [B, G, S, 2]
 // partials of shifted sums (shift: the group's first value), as gn_apply.
-__device__ inline void group_stats(const float* __restrict__ xb,
+template <typename T>
+__device__ inline void group_stats(const T* __restrict__ xb,
                                    const float* __restrict__ fwd_part, int b, int g, int G,
                                    int S, int cg, float cnt, float eps, float* mean,
                                    float* rstd) {
@@ -72,7 +78,7 @@ __device__ inline void group_stats(const float* __restrict__ xb,
   }
   const float m1 = s1 / cnt;
   *rstd = rsqrtf(fmaxf(s2 / cnt - m1 * m1, 0.f) + eps);
-  *mean = xb[g * cg] + m1;
+  *mean = to_f32(xb[g * cg]) + m1;
 }
 
 // d silu(z) / dz
@@ -81,8 +87,9 @@ __device__ inline float silu_grad(float z) {
   return sig * (1.f + z * (1.f - sig));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
                       const float* __restrict__ scale, const float* __restrict__ shift,
                       const float* __restrict__ fwd_part, float* __restrict__ part, int N,
@@ -110,9 +117,9 @@ gn_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const int n_end = min(N, (s + 1) * rows_per_split);
     for (int n = s * rows_per_split + r; n < n_end; n += R) {
       const long long i = row + (long long)n * C + c0 + ci;
-      const float xhat = (x[i] - coef[0][ci]) * coef[1][ci];
+      const float xhat = (to_f32(x[i]) - coef[0][ci]) * coef[1][ci];
       const float z = fmaf(fmaf(xhat, coef[2][ci], coef[3][ci]), coef[4][ci], coef[5][ci]);
-      const float dz = dy[i] * silu_grad(z);
+      const float dz = to_f32(dy[i]) * silu_grad(z);
       a0 += dz;
       a1 = fmaf(dz, xhat, a1);
     }
@@ -169,12 +176,13 @@ gn_bwd_params_kernel(const float* __restrict__ sums, const float* __restrict__ s
   dbeta[c] = db;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_bwd_apply_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
                     const float* __restrict__ scale, const float* __restrict__ shift,
                     const float* __restrict__ fwd_part, const float* __restrict__ sums,
-                    float* __restrict__ dx, int N, int C, int G, int S, float eps) {
+                    T* __restrict__ dx, int N, int C, int G, int S, float eps) {
   extern __shared__ float sm[];
   float* mean = sm;          // [C] each
   float* rstd = mean + C;
@@ -218,35 +226,22 @@ gn_bwd_apply_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const int i = base + k * blockDim.x + tid;
     if (i < total) {
       const int c = i % C, g = c / cg;
-      const float xhat = (x[row + i] - mean[c]) * rstd[c];
+      const float xhat = (to_f32(x[row + i]) - mean[c]) * rstd[c];
       const float z = fmaf(fmaf(xhat, gam[c], bet[c]), sc[c], sh[c]);
-      const float dxhat = dy[row + i] * silu_grad(z) * sc[c] * gam[c];
-      dx[row + i] = rstd[c] * (dxhat - (t1[g] + xhat * t2[g]) / cnt);
+      const float dxhat = to_f32(dy[row + i]) * silu_grad(z) * sc[c] * gam[c];
+      dx[row + i] = from_f32<T>(rstd[c] * (dxhat - (t1[g] + xhat * t2[g]) / cnt));
     }
   }
 }
 
-}  // namespace
-
-// Floats of workspace that pidm_gn_film_silu_bwd needs.
-extern "C" long long pidm_gn_film_silu_bwd_workspace(int B, int N, int C) {
-  return make_plan(B, N, C).total;
-}
-
-// x, dy, dx: [B, N, C] fp32; gamma, beta, dgamma, dbeta: [C] fp32; scale,
-// shift, dscale, dshift: [B, C] fp32, or all four null for no FiLM;
-// fwd_part: the forward's [B, G, S, 2] statistics partials; work: the
-// workspace above. Launches on `stream`, allocates nothing, returns the
-// CUDA error.
-extern "C" int pidm_gn_film_silu_bwd(const void* x, const void* dy, const void* gamma,
-                                     const void* beta, const void* scale, const void* shift,
-                                     const void* fwd_part, void* dx, void* dgamma, void* dbeta,
-                                     void* dscale, void* dshift, void* work, int B, int N,
-                                     int C, int G, int S, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int backward(const void* x, const void* dy, const void* gamma, const void* beta,
+             const void* scale, const void* shift, const void* fwd_part, void* dx, void* dgamma,
+             void* dbeta, void* dscale, void* dshift, void* work, int B, int N, int C, int G,
+             int S, float eps, cudaStream_t st) {
   const Plan w = make_plan(B, N, C);
-  const float* xf = static_cast<const float*>(x);
-  const float* dyf = static_cast<const float*>(dy);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   const float* sc = static_cast<const float*>(scale);
@@ -255,8 +250,8 @@ extern "C" int pidm_gn_film_silu_bwd(const void* x, const void* dy, const void* 
   float* ws = static_cast<float*>(work);
   cudaError_t err;
 
-  gn_bwd_partial_kernel<<<dim3(w.s2, (C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
-      xf, dyf, g, be, sc, sh, fp, ws + w.part, N, C, G, S, w.rows_per_split, eps);
+  gn_bwd_partial_kernel<T><<<dim3(w.s2, (C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
+      xt, dyt, g, be, sc, sh, fp, ws + w.part, N, C, G, S, w.rows_per_split, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   gn_bwd_fold_kernel<<<B, kThreads, 0, st>>>(ws + w.part, g, be, ws + w.sums,
                                              static_cast<float*>(dscale),
@@ -267,12 +262,37 @@ extern "C" int pidm_gn_film_silu_bwd(const void* x, const void* dy, const void* 
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t smem = (8 * C + 2 * G) * sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(gn_bwd_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(gn_bwd_apply_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int per_block = kThreads * kItems;
-  gn_bwd_apply_kernel<<<dim3((N * C + per_block - 1) / per_block, B), kThreads, smem, st>>>(
-      xf, dyf, g, be, sc, sh, fp, ws + w.sums, static_cast<float*>(dx), N, C, G, S, eps);
+  gn_bwd_apply_kernel<T><<<dim3((N * C + per_block - 1) / per_block, B), kThreads, smem, st>>>(
+      xt, dyt, g, be, sc, sh, fp, ws + w.sums, static_cast<T*>(dx), N, C, G, S, eps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of workspace that pidm_gn_film_silu_bwd needs.
+extern "C" long long pidm_gn_film_silu_bwd_workspace(int B, int N, int C) {
+  return make_plan(B, N, C).total;
+}
+
+// x, dy, dx: [B, N, C] fp32 (bf16 when `bf16` is 1); gamma, beta, dgamma,
+// dbeta: [C] fp32; scale, shift, dscale, dshift: [B, C] fp32, or all four
+// null for no FiLM; fwd_part: the forward's [B, G, S, 2] statistics
+// partials; work: the workspace above. Launches on `stream`, allocates
+// nothing, returns the CUDA error.
+extern "C" int pidm_gn_film_silu_bwd(const void* x, const void* dy, const void* gamma,
+                                     const void* beta, const void* scale, const void* shift,
+                                     const void* fwd_part, void* dx, void* dgamma, void* dbeta,
+                                     void* dscale, void* dshift, void* work, int B, int N,
+                                     int C, int G, int S, float eps, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return backward<__nv_bfloat16>(x, dy, gamma, beta, scale, shift, fwd_part, dx, dgamma,
+                                   dbeta, dscale, dshift, work, B, N, C, G, S, eps, st);
+  return backward<float>(x, dy, gamma, beta, scale, shift, fwd_part, dx, dgamma, dbeta, dscale,
+                         dshift, work, B, N, C, G, S, eps, st);
 }

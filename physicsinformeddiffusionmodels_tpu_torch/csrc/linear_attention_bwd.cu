@@ -4,6 +4,10 @@
 // and db_out from dy. K3 backward, the VJP of out = LA(x), is a mode of the
 // same passes (`block` false): no LayerNorm VJP, no dgamma and no db_out;
 // the q and k/v passes read x where K1 reads x-ln, and dx = dxln.
+// x and dy may be bf16 (the `bf16` flag; dx is then bf16 too, rounded once
+// when it is written): every read of them goes through pidm::to_f32, and all
+// arithmetic and every partial sum stay fp32 in the same fixed order. The
+// parameter gradients are fp32 either way.
 //
 // K1 replaces physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py
 // `_lab_bwd_kernel` (launched by `_lab_bwd_call` through pl.pallas_call);
@@ -20,8 +24,9 @@
 //
 // Bound on the H100: operations. Per token it does the qkv projection
 // again (2 * C * 768 flops), dP (2 * C * 256), dxln and dW_qkv (2 * C * 768
-// each) and dM (2 * C * 256), about 170 flops per byte of x and dy, far above
-// the fp32 balance of ~20; in full fp32 on the CUDA cores (no TF32).
+// each) and dM (2 * C * 256), about 170 flops per byte of fp32 x and dy (340
+// in bf16), far above the fp32 balance of ~20; in full fp32 on the CUDA cores
+// (no TF32).
 //
 // The TPU kernel walked the batch rows in order and carried dM and the
 // weight gradients across grid steps in VMEM. A CUDA grid has no order, and
@@ -30,8 +35,10 @@
 // B x N tokens). So this takes separate passes, each summing in a fixed
 // order, with no atomics, so results repeat exactly:
 //   1. lab_bwd_q, grid (token tiles of 16, B): LN, the q softmax P and dA
-//      (one thread per hidden column, one warp per head); writes x-ln, P and
-//      dA to the workspace and this tile's column sum of dy.
+//      (one thread per hidden column, one warp per head); writes x-ln (x in
+//      K3's mode) as fp32, P and dA to the workspace and this tile's column
+//      sum of dy. Passes 4 and 5 read the tokens from there, so x is read in
+//      its own type only in passes 1 and 4 (the LayerNorm VJP's x-hat).
 //   2. gemm_atb (split over tokens) + reduce_splits: dM = P^T dy per row.
 //   3. lab_bwd_ctx, grid (heads, B): dctx, row and the row's share of dW_out.
 //   4. lab_bwd_kv, grid (token tiles, B): k, v again from x-ln, then dk, dv
@@ -43,9 +50,10 @@
 // The forward saves, per (row, head), the normalised context and the k
 // softmax's max m and normaliser z (`stats`), so no pass streams the tokens
 // to rebuild them. The workspace keeps x-ln, P and [dA dk dv] for every
-// token in fp32: (C + 1024) floats a token, about 1.1 GB at B=64, N=4096,
-// C=32 (the Darcy top level), which an 80 GB card holds; a faster kernel
-// would keep them on chip. Any N (the ragged tile is masked); C <= 1024.
+// token in fp32, whatever x's type: (C + 1024) floats a token, about 1.1 GB
+// at B=64, N=4096, C=32 (the Darcy top level), which an 80 GB card holds; a
+// faster kernel would keep them on chip. Any N (the ragged tile is masked);
+// C <= 1024.
 
 #include <math.h>
 
@@ -53,8 +61,10 @@
 
 namespace {
 
+using pidm::from_f32;
 using pidm::load_tile;
 using pidm::ln_rows;
+using pidm::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kDh = 32;                     // dims per head
@@ -110,8 +120,9 @@ Plan make_plan(int B, int N, int C) {
 }
 
 // Pass 1. Thread j = h * 32 + d owns hidden column j.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lab_bwd_q_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+lab_bwd_q_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                  const float* __restrict__ gamma, const float* __restrict__ w_qkv,
                  const float* __restrict__ M, float* __restrict__ xln, float* __restrict__ P,
                  float* __restrict__ dqkv, float* __restrict__ vec_part, int N, int C,
@@ -128,8 +139,9 @@ lab_bwd_q_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   __syncthreads();
   if (block) ln_rows(xs, rows, C, gamma, eps);  // K3 reads the tokens as they are
   __syncthreads();
-  if (block) {  // K3's later passes read x itself
-    for (int i = tid; i < rows * C; i += kThreads) xln[base * C + i] = xs[i];
+  // the tokens as passes 4 and 5 read them, fp32: x-ln (K1) or x (K3)
+  for (int i = tid; i < rows * C; i += kThreads) xln[base * C + i] = xs[i];
+  if (block) {
     float* vp = vec_part + ((long long)b * gridDim.x + tile) * 2 * C;
     for (int c = tid; c < C; c += kThreads) {  // this tile's share of db_out
       float s = 0.f;
@@ -167,9 +179,10 @@ lab_bwd_q_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 // part[z, s] = A_z[k, :]^T Bm_z[k, :] summed over the tokens k of split s:
 // [I, J] from A [K, I] (row stride lda) and Bm [K, J] (row stride ldb).
 // Grid (J tiles, I tiles, Z * S); each thread owns a 4 x 4 block of the
-// 64 x 64 output tile.
+// 64 x 64 output tile. Bm is fp32 or bf16 (dy).
+template <typename TB>
 __global__ void __launch_bounds__(kThreads)
-gemm_atb_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+gemm_atb_kernel(const float* __restrict__ A, const TB* __restrict__ Bm,
                 float* __restrict__ part, int K, int I, int J, int lda, int ldb,
                 long long stride_a, long long stride_b, int rows_per_split, int S) {
   __shared__ float as[kGK][kGT];
@@ -185,7 +198,7 @@ gemm_atb_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     for (int e = tid; e < kGK * kGT; e += kThreads) {
       const int kk = e / kGT, ii = e % kGT, k = k0 + kk;
       as[kk][ii] = (k < k_end && i0 + ii < I) ? A[(long long)k * lda + i0 + ii] : 0.f;
-      bs[kk][ii] = (k < k_end && j0 + ii < J) ? Bm[(long long)k * ldb + j0 + ii] : 0.f;
+      bs[kk][ii] = (k < k_end && j0 + ii < J) ? to_f32(Bm[(long long)k * ldb + j0 + ii]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -264,13 +277,14 @@ lab_bwd_ctx_kernel(const float* __restrict__ stats, const float* __restrict__ w_
 }
 
 // Pass 4. Thread j = h * 32 + lane owns hidden column j of k and v. `xln`
-// is x itself in K3's mode.
+// holds x itself in K3's mode.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+lab_bwd_kv_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ w_qkv,
                   const float* __restrict__ stats, const float* __restrict__ xln,
                   const float* __restrict__ dctx, const float* __restrict__ row,
-                  float* __restrict__ dqkv, float* __restrict__ dx,
+                  float* __restrict__ dqkv, T* __restrict__ dx,
                   float* __restrict__ vec_part, int N, int C, float eps, bool block) {
   extern __shared__ float sm[];
   float* xs = sm;                     // [kTile, C] x-ln, then dxln
@@ -367,7 +381,7 @@ lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
   __syncthreads();
   if (!block) {  // K3: dx = dxln
-    for (int i = tid; i < rows * C; i += kThreads) dx[base * C + i] = xs[i];
+    for (int i = tid; i < rows * C; i += kThreads) dx[base * C + i] = from_f32<T>(xs[i]);
     return;
   }
 
@@ -394,10 +408,10 @@ lab_bwd_kv_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     }
     s1 = pidm::warp_sum(s1) / C;
     s2 = pidm::warp_sum(s2) / C;
-    float* dxr = dx + (base + r) * C;
-    const float* dyr = dy + (base + r) * C;
+    T* dxr = dx + (base + r) * C;
+    const T* dyr = dy + (base + r) * C;
     for (int c = lane; c < C; c += 32)
-      dxr[c] = rstd * (du[c] * gamma[c] - s1 - xr[c] * s2) + dyr[c];
+      dxr[c] = from_f32<T>(rstd * (du[c] * gamma[c] - s1 - xr[c] * s2) + to_f32(dyr[c]));
   }
   __syncthreads();
   float* vp = vec_part + ((long long)b * gridDim.x + tile) * 2 * C + C;
@@ -414,13 +428,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-cudaError_t gemm_atb(const float* A, const float* Bm, float* part, int Z, int K, int I, int J,
+template <typename TB>
+cudaError_t gemm_atb(const float* A, const TB* Bm, float* part, int Z, int K, int I, int J,
                      int lda, int ldb, long long stride_a, long long stride_b, int rows,
                      int S, cudaStream_t st) {
   if ((long long)Z * S > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((J + kGT - 1) / kGT, (I + kGT - 1) / kGT, Z * S);
-  gemm_atb_kernel<<<grid, kThreads, 0, st>>>(A, Bm, part, K, I, J, lda, ldb, stride_a,
-                                              stride_b, rows, S);
+  gemm_atb_kernel<TB><<<grid, kThreads, 0, st>>>(A, Bm, part, K, I, J, lda, ldb, stride_a,
+                                                  stride_b, rows, S);
   return cudaGetLastError();
 }
 
@@ -431,33 +446,34 @@ cudaError_t reduce_splits(const float* part, float* out, int Z, int S, int E, lo
   return cudaGetLastError();
 }
 
-int backward(const void* x, const void* dy, const void* gamma, const void* w_qkv,
+template <typename T>
+int typed_backward(const void* x, const void* dy, const void* gamma, const void* w_qkv,
              const void* w_out, const void* M, const void* stats, void* dx, void* dgamma,
              void* dw_qkv, void* dw_out, void* db_out, void* work, int B, int N, int C,
              float eps, bool block, cudaStream_t st) {
   const Plan w = make_plan(B, N, C);
-  const float* xf = static_cast<const float*>(x);
-  const float* dyf = static_cast<const float*>(dy);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
   const float* g = static_cast<const float*>(gamma);
   const float* wqkv = static_cast<const float*>(w_qkv);
   const float* wout = static_cast<const float*>(w_out);
   const float* stf = static_cast<const float*>(stats);
   float* ws = static_cast<float*>(work);
   const long long tokens = (long long)B * N;
-  const float* xln = block ? ws + w.xln : xf;  // what passes 4 and 5 read
+  const float* xln = ws + w.xln;  // what passes 4 and 5 read, written by pass 1
 
   const size_t smem_q = 2 * kTile * C * sizeof(float);
   const size_t smem_kv = (2 * kTile * C + kTile * kQKV + kHeads * kDh * kDhP) * sizeof(float);
-  cudaError_t err = allow_smem(lab_bwd_q_kernel, smem_q);
-  if (err == cudaSuccess) err = allow_smem(lab_bwd_kv_kernel, smem_kv);
+  cudaError_t err = allow_smem(lab_bwd_q_kernel<T>, smem_q);
+  if (err == cudaSuccess) err = allow_smem(lab_bwd_kv_kernel<T>, smem_kv);
   if (err != cudaSuccess) return (int)err;
 
-  lab_bwd_q_kernel<<<dim3(w.nt, B), kThreads, smem_q, st>>>(
-      xf, dyf, g, wqkv, static_cast<const float*>(M), ws + w.xln, ws + w.p, ws + w.dqkv,
+  lab_bwd_q_kernel<T><<<dim3(w.nt, B), kThreads, smem_q, st>>>(
+      xt, dyt, g, wqkv, static_cast<const float*>(M), ws + w.xln, ws + w.p, ws + w.dqkv,
       ws + w.vec_part, N, C, eps, block);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dM[b] = P[b]^T dy[b]
-  err = gemm_atb(ws + w.p, dyf, ws + w.dm_part, B, N, kH, C, kH, C, (long long)N * kH,
+  err = gemm_atb(ws + w.p, dyt, ws + w.dm_part, B, N, kH, C, kH, C, (long long)N * kH,
                  (long long)N * C, w.rows_m, w.sm, st);
   if (err == cudaSuccess)
     err = reduce_splits(ws + w.dm_part, ws + w.dm, B, w.sm, kH * C, (long long)kH * C,
@@ -466,9 +482,9 @@ int backward(const void* x, const void* dy, const void* gamma, const void* w_qkv
   lab_bwd_ctx_kernel<<<dim3(kHeads, B), kThreads, 0, st>>>(
       stf, wout, ws + w.dm, ws + w.dctx, ws + w.row, ws + w.dwout_part, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  lab_bwd_kv_kernel<<<dim3(w.nt, B), kThreads, smem_kv, st>>>(
-      xf, dyf, g, wqkv, stf, xln, ws + w.dctx, ws + w.row, ws + w.dqkv,
-      static_cast<float*>(dx), ws + w.vec_part, N, C, eps, block);
+  lab_bwd_kv_kernel<T><<<dim3(w.nt, B), kThreads, smem_kv, st>>>(
+      xt, dyt, g, wqkv, stf, xln, ws + w.dctx, ws + w.row, ws + w.dqkv,
+      static_cast<T*>(dx), ws + w.vec_part, N, C, eps, block);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // dW_qkv = x-ln^T [dA dk dv] over all tokens
   err = gemm_atb(xln, ws + w.dqkv, ws + w.dwqkv_part, 1, (int)tokens, C, kQKV, C, kQKV,
@@ -491,6 +507,18 @@ int backward(const void* x, const void* dy, const void* gamma, const void* w_qkv
   return (int)err;
 }
 
+int backward(const void* x, const void* dy, const void* gamma, const void* w_qkv,
+             const void* w_out, const void* M, const void* stats, void* dx, void* dgamma,
+             void* dw_qkv, void* dw_out, void* db_out, void* work, int B, int N, int C,
+             float eps, bool block, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return typed_backward<__nv_bfloat16>(x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma,
+                                         dw_qkv, dw_out, db_out, work, B, N, C, eps, block, st);
+  return typed_backward<float>(x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv,
+                               dw_out, db_out, work, B, N, C, eps, block, st);
+}
+
 }  // namespace
 
 // Floats of workspace that pidm_linear_attention_block_bwd and
@@ -499,29 +527,30 @@ extern "C" long long pidm_linear_attention_block_bwd_workspace(int B, int N, int
   return make_plan(B, N, C).total;
 }
 
-// x, dy, dx: [B, N, C] fp32; gamma, dgamma, b_out's db_out: [C]; w_qkv,
-// dw_qkv: [C, 768]; w_out, dw_out: [256, C]; M: [B, 256, C] and stats:
-// [B, 8, 1088], both as the forward wrote them; work: the workspace of
-// pidm_linear_attention_block_bwd_workspace.
+// x, dy, dx: [B, N, C] fp32 (bf16 when `bf16` is 1); gamma, dgamma, b_out's
+// db_out: [C] fp32; w_qkv, dw_qkv: [C, 768]; w_out, dw_out: [256, C]; M:
+// [B, 256, C] and stats: [B, 8, 1088], both as the forward wrote them; work:
+// the workspace of pidm_linear_attention_block_bwd_workspace.
 // Launches on `stream`, allocates nothing, returns the CUDA error.
 extern "C" int pidm_linear_attention_block_bwd(const void* x, const void* dy, const void* gamma,
                                                const void* w_qkv, const void* w_out,
                                                const void* M, const void* stats, void* dx,
                                                void* dgamma, void* dw_qkv, void* dw_out,
                                                void* db_out, void* work, int B, int N, int C,
-                                               float eps, void* stream) {
+                                               float eps, int bf16, void* stream) {
   return backward(x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
-                  work, B, N, C, eps, true, static_cast<cudaStream_t>(stream));
+                  work, B, N, C, eps, true, bf16, stream);
 }
 
-// K3 backward: x, dy, dx: [B, N, C] fp32; w_qkv, dw_qkv: [C, 768]; w_out,
+// K3 backward: x, dy, dx: [B, N, C] fp32 (bf16 when `bf16` is 1); w_qkv,
+// dw_qkv: [C, 768]; w_out,
 // dw_out: [256, C]; M and stats as K3's forward wrote them; work: the
 // workspace of pidm_linear_attention_block_bwd_workspace. Launches on
 // `stream`, allocates nothing, returns the CUDA error.
 extern "C" int pidm_linear_attention_bwd(const void* x, const void* dy, const void* w_qkv,
                                          const void* w_out, const void* M, const void* stats,
                                          void* dx, void* dw_qkv, void* dw_out, void* work,
-                                         int B, int N, int C, void* stream) {
+                                         int B, int N, int C, int bf16, void* stream) {
   return backward(x, dy, nullptr, w_qkv, w_out, M, stats, dx, nullptr, dw_qkv, dw_out,
-                  nullptr, work, B, N, C, 0.f, false, static_cast<cudaStream_t>(stream));
+                  nullptr, work, B, N, C, 0.f, false, bf16, stream);
 }

@@ -39,21 +39,23 @@ _SIGNATURES = {
     # x, out, gamma, beta, scale, shift, partials, B, N, C, G, S, eps, bf16, stream
     "pidm_gn_film_silu": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
     # x, dy, gamma, beta, scale, shift, fwd partials, dx, dgamma, dbeta, dscale,
-    # dshift, work, B, N, C, G, S, eps, stream
-    "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 5 + [_F, _P], _I),
+    # dshift, work, B, N, C, G, S, eps, bf16, stream
+    "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 5 + [_F, _I, _P], _I),
     # B, N, C -> floats of workspace
     "pidm_gn_film_silu_bwd_workspace": ([_I] * 3, _L),
     # x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, bf16, stream
     "pidm_linear_attention_block": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
     # x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
-    # work, B, N, C, eps, stream
-    "pidm_linear_attention_block_bwd": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
+    # work, B, N, C, eps, bf16, stream
+    "pidm_linear_attention_block_bwd": ([_P] * 13 + [_I] * 3 + [_F, _I, _P], _I),
     # B, N, C -> floats of workspace (K1's and K3's backward)
     "pidm_linear_attention_block_bwd_workspace": ([_I] * 3, _L),
     # x, out, w_qkv, w_out, M, stats, B, N, C, bf16, stream
     "pidm_linear_attention": ([_P] * 6 + [_I] * 4 + [_P], _I),
-    # x, dy, w_qkv, w_out, M, stats, dx, dw_qkv, dw_out, work, B, N, C, stream
-    "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
+    # x, dy, w_qkv, w_out, M, stats, dx, dw_qkv, dw_out, work, B, N, C, bf16, stream
+    "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # x, out, a, b, partials, B, N, C, G, S, eps, stream (K5)
+    "pidm_gn_film_silu_packed": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
 }
 
 

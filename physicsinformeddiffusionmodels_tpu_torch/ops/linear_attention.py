@@ -8,9 +8,11 @@ kernels do not take raises. On CUDA, when grad is enabled and an input
 requires it, the call goes through an ``autograd.Function``: its forward
 launches ``csrc/linear_attention.cu`` and saves the per-head context and
 k-softmax statistics it writes, and its backward
-``csrc/linear_attention_bwd.cu``. K3 is a mode of K1's kernels (no LN, no
-b_out, no residual). ``<wrapper>.launches`` and ``.backward_launches``
-count the calls that launched each.
+``csrc/linear_attention_bwd.cu``, for fp32 and bf16 x alike (dx in x's
+dtype, the parameter gradients in fp32). K3 is a mode of K1's kernels (no
+LN, no b_out, no residual). ``<wrapper>.launches`` and ``.backward_launches``
+count the calls that launched each; ``.bf16_backward_launches`` (both) and
+``linear_attention_block.bf16_launches`` those of them on bf16 x.
 """
 
 from __future__ import annotations
@@ -92,6 +94,10 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _bf16(x) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
 def launch_forward(x, gamma, w_qkv, w_out, b_out, eps: float = 1e-5):
     """Launch the forward kernel on checked CUDA tensors. Returns (out, M,
     stats): M and stats (per-head context and k-softmax statistics) are what
@@ -101,17 +107,18 @@ def launch_forward(x, gamma, w_qkv, w_out, b_out, eps: float = 1e-5):
     m, stats = _saved(x)
     rc = _build.library().pidm_linear_attention_block(
         x.data_ptr(), out.data_ptr(), gamma.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
-        b_out.data_ptr(), m.data_ptr(), stats.data_ptr(), b, n, c,
-        eps, int(x.dtype == torch.bfloat16), _stream(x),
+        b_out.data_ptr(), m.data_ptr(), stats.data_ptr(), b, n, c, eps, _bf16(x), _stream(x),
     )
     _build.check(rc, "linear_attention_block")
     linear_attention_block.launches += 1
+    linear_attention_block.bf16_launches += _bf16(x)
     return out, m, stats
 
 
 def launch_backward(dy, x, gamma, w_qkv, w_out, m, stats, eps: float = 1e-5):
-    """Launch the backward kernel (fp32) with the forward's M and stats.
-    Returns (dx, dgamma, dw_qkv, dw_out, db_out)."""
+    """Launch the backward kernel with the forward's M and stats; dy and dx
+    in x's dtype (fp32 or bf16). Returns (dx, dgamma, dw_qkv, dw_out,
+    db_out)."""
     dy = dy.contiguous()
     b, n, c = x.shape
     lib = _build.library()
@@ -123,15 +130,18 @@ def launch_backward(dy, x, gamma, w_qkv, w_out, m, stats, eps: float = 1e-5):
     rc = lib.pidm_linear_attention_block_bwd(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
         m.data_ptr(), stats.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dw_qkv.data_ptr(),
-        dw_out.data_ptr(), db_out.data_ptr(), work.data_ptr(), b, n, c, eps, _stream(x),
+        dw_out.data_ptr(), db_out.data_ptr(), work.data_ptr(), b, n, c, eps, _bf16(x),
+        _stream(x),
     )
     _build.check(rc, "linear_attention_block backward")
     linear_attention_block.backward_launches += 1
+    linear_attention_block.bf16_backward_launches += _bf16(x)
     return dx, dgamma, dw_qkv, dw_out, db_out
 
 
 class _LinearAttentionBlock(torch.autograd.Function):
-    """The CUDA forward and backward kernels as one autograd node (fp32)."""
+    """The CUDA forward and backward kernels as one autograd node (fp32 or
+    bf16 x, fp32 parameters)."""
 
     @staticmethod
     def forward(ctx, x, gamma, w_qkv, w_out, b_out, eps):
@@ -152,7 +162,7 @@ def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Te
 
     x: [B, N, C] (fp32 or bf16, contiguous); gamma, b_out: [C] fp32;
     w_qkv: [C, 3H] fp32; w_out: [H, C] fp32, H = heads * dim_head. The
-    kernels take 8 heads of 32 dims and C <= 1024; the backward takes fp32.
+    kernels take 8 heads of 32 dims and C <= 1024.
     """
     if x.device.type == "cpu":
         return linear_attention_block_plain(x, gamma, w_qkv, w_out, b_out, heads, dim_head, eps)
@@ -161,15 +171,12 @@ def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Te
     _check(x, w_qkv, w_out, heads, dim_head, gamma, b_out)
     args = (x, gamma, w_qkv, w_out, b_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                "the K1 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 3")
         return _LinearAttentionBlock.apply(*args, eps)
     return launch_forward(*args, eps)[0]
 
 
-linear_attention_block.launches = 0
-linear_attention_block.backward_launches = 0
+linear_attention_block.launches = linear_attention_block.bf16_launches = 0
+linear_attention_block.backward_launches = linear_attention_block.bf16_backward_launches = 0
 
 
 def launch_attention_forward(x, w_qkv, w_out):
@@ -180,7 +187,7 @@ def launch_attention_forward(x, w_qkv, w_out):
     m, stats = _saved(x)
     rc = _build.library().pidm_linear_attention(
         x.data_ptr(), out.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), m.data_ptr(),
-        stats.data_ptr(), b, n, c, int(x.dtype == torch.bfloat16), _stream(x),
+        stats.data_ptr(), b, n, c, _bf16(x), _stream(x),
     )
     _build.check(rc, "linear_attention")
     linear_attention.launches += 1
@@ -188,8 +195,8 @@ def launch_attention_forward(x, w_qkv, w_out):
 
 
 def launch_attention_backward(dy, x, w_qkv, w_out, m, stats):
-    """Launch K3's backward kernel (fp32) with the forward's M and stats.
-    Returns (dx, dw_qkv, dw_out)."""
+    """Launch K3's backward kernel with the forward's M and stats; dy and dx
+    in x's dtype. Returns (dx, dw_qkv, dw_out)."""
     dy = dy.contiguous()
     b, n, c = x.shape
     lib = _build.library()
@@ -199,15 +206,17 @@ def launch_attention_backward(dy, x, w_qkv, w_out, m, stats):
     rc = lib.pidm_linear_attention_bwd(
         x.data_ptr(), dy.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), m.data_ptr(),
         stats.data_ptr(), dx.data_ptr(), dw_qkv.data_ptr(), dw_out.data_ptr(), work.data_ptr(),
-        b, n, c, _stream(x),
+        b, n, c, _bf16(x), _stream(x),
     )
     _build.check(rc, "linear_attention backward")
     linear_attention.backward_launches += 1
+    linear_attention.bf16_backward_launches += _bf16(x)
     return dx, dw_qkv, dw_out
 
 
 class _LinearAttention(torch.autograd.Function):
-    """K3's CUDA forward and backward kernels as one autograd node (fp32)."""
+    """K3's CUDA forward and backward kernels as one autograd node (fp32 or
+    bf16 x)."""
 
     @staticmethod
     def forward(ctx, x, w_qkv, w_out):
@@ -226,7 +235,7 @@ def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
 
     x: [B, N, C] (fp32 or bf16, contiguous); w_qkv: [C, 3H] fp32; w_out:
     [H, C] fp32, H = heads * dim_head. The kernels take 8 heads of 32 dims
-    and C <= 1024; the backward takes fp32.
+    and C <= 1024.
     """
     if x.device.type == "cpu":
         return linear_attention_plain(x, w_qkv, w_out, heads, dim_head)
@@ -234,12 +243,9 @@ def linear_attention(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w_qkv, w_out, heads, dim_head)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_qkv, w_out)):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                "the K3 backward kernel takes float32; bf16 training is ROADMAP Queue 1 item 3")
         return _LinearAttention.apply(x, w_qkv, w_out)
     return launch_attention_forward(x, w_qkv, w_out)[0]
 
 
 linear_attention.launches = 0
-linear_attention.backward_launches = 0
+linear_attention.backward_launches = linear_attention.bf16_backward_launches = 0

@@ -5,7 +5,7 @@
 
 B=64, 64x64, C=32, fp32 with TF32 off, with the JAX script's seeded
 weights (normal x 0.05; LN scale 1, biases 0). Each form's device time per
-call comes from replaying ``REPS`` calls captured in one CUDA graph:
+call comes from replaying 20 calls captured in one CUDA graph:
   * pre-norm attention through K3: ``PreNormResidual(SpatialLinearAttention)``,
     LN (PyTorch) -> K3 -> + b_out + x;
   * the same through K3's plain PyTorch version;
@@ -38,35 +38,12 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention_plain,
 )
 from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
+from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
 
 B, P, C = 64, 64, 32
 H = 8 * 32
-REPS = 20
 # the distinct (N, C) of one UNet(dim=32) forward's attention calls at 64x64
 SHAPES = [(4096, 32), (1024, 64), (256, 128), (64, 256), (64, 128), (256, 64), (1024, 32)]
-
-
-def graph_ms(fn, reps: int = REPS) -> float:
-    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in one
-    CUDA graph and replayed, so host work between launches is not timed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture: build, cuDNN, cuBLAS
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
 
 
 def _weights(dev: torch.device) -> dict:

@@ -1,10 +1,14 @@
 """Darcy training driver (port of the Darcy part of the root ``train.py``).
 
     python -m physicsinformeddiffusionmodels_tpu_torch.train --iterations N \\
-        [--batch-size B] [--data-dir DIR --valid-data-dir DIR] [--device cpu] [--resume]
+        [--batch-size B] [--data-dir DIR --valid-data-dir DIR] [--device cpu] [--resume] \\
+        [--compute-dtype {float32,bfloat16}] [--fp32-head]
 
 Physics-informed diffusion training of ``UNet(dim=32, channels=2)`` on the
-Darcy data (``data/darcy_generator.py`` writes it): the loss adds the PDE
+Darcy data (``data/darcy_generator.py`` writes it), in the config's compute
+dtype: bfloat16 unless ``--compute-dtype float32``, as in the JAX driver;
+``--fp32-head`` keeps the final block and 1x1 conv in fp32 (the recipe of
+``results/darcy_300k_fp32head``). The loss adds the PDE
 residual log-likelihood of the x0 prediction to the p2-weighted data loss;
 global-norm clip, Adam, EMA. The whole dataset lives on the device and each
 step samples its batch there. Every ``log_freq`` steps the losses go to
@@ -75,18 +79,15 @@ def check_supported(cfg: RunConfig) -> None:
     if cfg.x0_estimation != "mean":
         raise NotImplementedError(
             "x0_estimation='sample' (DDIM) is not ported yet: ROADMAP Queue 1 item 5")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bf16 training is not ported yet (the backward kernels are fp32): "
-            "ROADMAP Queue 1 item 3")
     if cfg.mesh_tp > 1 or cfg.mesh_slices > 1 or (cfg.mesh_dp or 1) > 1:
         raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 11")
 
 
 def build_model(cfg: RunConfig) -> UNet:
-    """The study's UNet for ``cfg`` (float32 compute)."""
+    """The study's UNet for ``cfg``, in ``cfg.compute_dtype`` (with the fp32
+    head when ``cfg.fp32_head``)."""
     check_supported(cfg)
-    return _build_unet(cfg, "float32")
+    return _build_unet(cfg)
 
 
 def make_physics(cfg: RunConfig, device) -> DarcyResidual:
@@ -204,7 +205,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sample-freq", type=int, default=None)
     ap.add_argument("--test-eval-freq", type=int, default=None)
     ap.add_argument("--log-freq", type=int, default=None)
-    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
+                    help="default: the config's (bfloat16)")
+    ap.add_argument("--fp32-head", action="store_true",
+                    help="with bf16 compute: the final block and 1x1 conv in fp32")
     ap.add_argument("--pixels-per-dim", type=int, default=None)
     ap.add_argument("--no-samples", type=int, default=None)
     ap.add_argument("--chunk-steps", type=int, default=None,
@@ -220,7 +224,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
-    kw = {"gov_eqs": args.gov_eqs, "name": args.name, "compute_dtype": args.compute_dtype}
+    kw = {"gov_eqs": args.gov_eqs, "name": args.name}
     for k_arg, k_cfg in [
         ("iterations", "train_iterations"), ("batch_size", "train_batch_size"),
         ("x0_estimation", "x0_estimation"), ("c_residual", "c_residual"),
@@ -230,10 +234,13 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         ("pixels_per_dim", "pixels_per_dim"), ("no_samples", "no_samples"),
         ("chunk_steps", "chunk_steps"), ("lr_schedule", "lr_schedule"),
         ("lr_final_frac", "lr_final_frac"), ("seed", "seed"),
+        ("compute_dtype", "compute_dtype"),
     ]:
         v = getattr(args, k_arg)
         if v is not None:
             kw[k_cfg] = v
+    if args.fp32_head:
+        kw["fp32_head"] = True
     if args.residual_grad_guidance:
         kw["residual_grad_guidance"] = True
     if args.resume:

@@ -1,0 +1,28 @@
+"""Device time of a call on the card, for the profilers and ``chip_smoke.py``."""
+
+from __future__ import annotations
+
+import torch
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in one
+    CUDA graph and replayed, so host work between launches is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: build, cuDNN, cuBLAS
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps

@@ -21,6 +21,7 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention,
     linear_attention_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEADS, DH = 8, 32
 H = HEADS * DH

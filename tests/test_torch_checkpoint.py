@@ -14,6 +14,7 @@ from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
     load_checkpoint,
     msgpack_restore,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "results/darcy_300k_fp32head/portable/model/checkpoint_300000.msgpack"

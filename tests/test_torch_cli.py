@@ -19,6 +19,7 @@ from physicsinformeddiffusionmodels_tpu.physics.darcy import DarcyResidual as Ja
 from physicsinformeddiffusionmodels_tpu.training.checkpoint import save_checkpoint
 from physicsinformeddiffusionmodels_tpu_torch import sample_eval
 from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -47,9 +48,10 @@ def test_port_imports_nothing_of_jax():
                           capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("models.unet", "train", "data.datasets", "data.darcy_generator",
-                 "training.trainer", "diffusion.losses", "profile_attn", "utils.viz"):
+                 "training.trainer", "diffusion.losses", "profile_attn", "profile_gn",
+                 "utils.timing", "utils.viz"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
-    assert len(report["modules"]) >= 31
+    assert len(report["modules"]) >= 33
     assert report["banned"] == []
 
 

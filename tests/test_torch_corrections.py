@@ -12,6 +12,7 @@ from physicsinformeddiffusionmodels_tpu.diffusion import sampling as jsampling
 from physicsinformeddiffusionmodels_tpu.physics.darcy import DarcyResidual as JaxDarcy
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.sampling import dynamic_threshold
 from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

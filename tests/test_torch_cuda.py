@@ -14,6 +14,8 @@ import torch
 
 from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
     group_norm_film_silu,
+    group_norm_film_silu_packed,
+    group_norm_film_silu_packed_plain,
     group_norm_film_silu_plain,
 )
 from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
@@ -240,24 +242,35 @@ def test_backward_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, 
 
 
 @pytest.mark.cuda
-def test_kernels_keep_the_unet_in_the_autograd_graph(cuda):
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["fp32", "bf16_fp32_head"])
+def test_kernels_keep_the_unet_in_the_autograd_graph(cuda, dtype):
     """Every K1 and K2 parameter of UNet(dim=32) gets a non-zero gradient
     from a training loss on the card (the kernels once returned outputs
-    with no grad_fn, which cut these parameters off)."""
+    with no grad_fn, which cut these parameters off), in fp32 and in the
+    study's bf16 recipe, where the kernels' backward takes bf16."""
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import LossWeights, pidm_loss
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
     from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
     from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
 
     torch.manual_seed(0)
-    model = UNet(dim=32, channels=2).to(cuda)
+    model = UNet(dim=32, channels=2, dtype=dtype, fp32_head=dtype is not None).to(cuda)
     x0 = torch.randn(2, 64, 64, 2, device=cuda)
     t = torch.tensor([3, 70], device=cuda)
     noise = torch.randn(2, 64, 64, 2, device=cuda)
+    counts = [(linear_attention_block, "backward_launches"),
+              (linear_attention_block, "bf16_backward_launches"),
+              (group_norm_film_silu, "backward_launches"),
+              (group_norm_film_silu, "bf16_backward_launches")]
+    before = [getattr(f, k) for f, k in counts]
     loss, _ = pidm_loss(create_schedule(100), x0, t, noise, denoise_fn=model,
                         physics_fn=DarcyResidual(64, device=cuda),
                         weights=LossWeights(1.0, 1e-3))
     loss.backward()
+    torch.cuda.synchronize()
+    # in bf16 every K1 and K2 backward takes bf16 but the fp32 head's two K2
+    assert [getattr(f, k) - b for (f, k), b in zip(counts, before)] == (
+        [8, 0, 38, 0] if dtype is None else [8, 8, 38, 36])
     names = [n for n, _ in model.named_parameters()
              if n.split(".")[-1] in ("ln_gamma", "w_qkv", "w_out", "b_out", "gn_scale", "gn_bias")]
     assert len(names) == 8 * 4 + 38 * 2
@@ -359,3 +372,137 @@ def test_k3_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
                 _check_composition(cuda, 1024, 32)
             else:
                 _check_la_backward(cuda, 1024, 32)
+
+
+# bf16 input to the backward kernels (K1, K2, K3), and K5
+
+# bf16 backward kernel vs autograd through the plain version on the same bf16
+# input: dx is written in bf16 (one rounding of the output), the parameter
+# gradients stay fp32 (the same sums in another order)
+BF16_DX_TOL, BF16_PARAM_TOL = 2e-2, 1e-3
+
+
+def _bf16_dy(shape, device, seed):
+    """A bf16 dy in the first half of a buffer twice its size, so that a
+    kernel that reads it as fp32 reads garbage inside the allocation (and
+    fails the comparison) rather than past its end."""
+    n = int(np.prod(shape))
+    buf = torch.empty(2 * n, dtype=torch.bfloat16, device=device)
+    buf.normal_(generator=torch.Generator(device=device).manual_seed(seed))
+    return buf[:n].view(shape)
+
+
+def _check_bf16_backward(fn, plain, args, names, counter):
+    """The gradients of <fn(*args), dy> with x (args[0]) and dy in bf16,
+    through the kernel and through autograd on the plain version."""
+    args = [args[0].bfloat16(), *args[1:]]
+    dy = _bf16_dy(args[0].shape, args[0].device, seed=sum(args[0].shape))
+    _, ref = _grads(plain, args, dy)
+    before = (counter.backward_launches, counter.bf16_backward_launches)
+    out, got = _grads(fn, args, dy)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and (
+        counter.backward_launches, counter.bf16_backward_launches) == (before[0] + 1, before[1] + 1)
+    for name, g, r in zip(names, got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        tol = BF16_DX_TOL if name == "dx" else BF16_PARAM_TOL
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol * scale, (
+            f"{name}: max |diff| {err:.3e} > {tol} x max |g| {scale:.3e}")
+
+
+def _check_bf16_lab_backward(cuda, n, c, b=4):
+    _check_bf16_backward(linear_attention_block, linear_attention_block_plain,
+                         [_t(a, cuda) for a in _lab_inputs(b, n, c)],
+                         ("dx", "dgamma", "dw_qkv", "dw_out", "db_out"), linear_attention_block)
+
+
+def _check_bf16_la_backward(cuda, n, c, b=4):
+    _check_bf16_backward(linear_attention, linear_attention_plain,
+                         [_t(a, cuda) for a in _la_inputs(b, n, c)], ("dx", "dw_qkv", "dw_out"),
+                         linear_attention)
+
+
+def _check_bf16_gn_backward(cuda, n, c, film, b=4):
+    _check_bf16_backward(group_norm_film_silu, group_norm_film_silu_plain,
+                         [_t(a, cuda) for a in _gn_inputs(b, n, c, film)],
+                         ("dx", "dgamma", "dbeta", "dscale", "dshift"), group_norm_film_silu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
+def test_bf16_backward_kernels_match_autograd(cuda, n, c):
+    _check_bf16_lab_backward(cuda, n, c)
+    _check_bf16_la_backward(cuda, n, c)
+    for film in (True, False):
+        _check_bf16_gn_backward(cuda, n, c, film)
+
+
+# one break of each kernel's bf16 path, which its check must catch:
+# name -> (file, text replaced, replacement)
+BF16_MUTANTS = {
+    # K1/K3: dy read through the fp32 loader in dM = P^T dy
+    "K1/K3 bwd read bf16 dy as fp32": (
+        "linear_attention_bwd.cu", "to_f32(Bm[(long long)k * ldb + j0 + ii])",
+        "reinterpret_cast<const float*>(Bm)[(long long)k * ldb + j0 + ii]"),
+    "K2 bwd read bf16 dy as fp32": (
+        "group_norm_bwd.cu", "const float dz = to_f32(dy[i]) * silu_grad(z);",
+        "const float dz = reinterpret_cast<const float*>(dy)[i] * silu_grad(z);"),
+    "K5 variance without mean^2": (
+        "group_norm_packed.cu", "rsqrtf(s2 / cnt - mean * mean + eps)", "rsqrtf(s2 / cnt + eps)"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(BF16_MUTANTS))
+def test_bf16_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+    filename, old, new = BF16_MUTANTS[mutant]
+    checks = {"linear_attention_bwd.cu": [lambda: _check_bf16_lab_backward(cuda, 1024, 32),
+                                          lambda: _check_bf16_la_backward(cuda, 1024, 32)],
+              "group_norm_bwd.cu": [lambda: _check_bf16_gn_backward(cuda, 1024, 32, True)],
+              "group_norm_packed.cu": [lambda: _check_k5(cuda, 1024, 32)]}[filename]
+    with _patched_kernels(monkeypatch, tmp_path, filename, old, new):
+        for check in checks:
+            with pytest.raises(AssertionError):
+                check()
+
+
+def _check_k5(cuda, n, c, b=4):
+    """K5 against its plain version and against K2's forward on the same
+    bf16 input: within K5_TOL of the largest output."""
+    x, gamma, beta, scale, shift = [_t(a, cuda) for a in _gn_inputs(b, n, c, film=True)]
+    x = x.bfloat16()
+    before = group_norm_film_silu_packed.launches
+    got = group_norm_film_silu_packed(x, gamma, beta, scale, shift)
+    torch.cuda.synchronize()
+    assert group_norm_film_silu_packed.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    for ref in (group_norm_film_silu_packed_plain(x, gamma, beta, scale, shift),
+                group_norm_film_silu(x, gamma, beta, scale, shift)):
+        scale_ = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= K5_TOL * scale_, (
+            f"max |diff| {err:.3e} > {K5_TOL} x {scale_:.3e}")
+
+
+# bf16 outputs: a rounding, and the one-pass variance against K2's shifted sums
+K5_TOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(4096, 32), (1024, 64), (256, 128), (100, 32), (64, 8)])
+def test_packed_kernel_matches_plain_and_k2(cuda, n, c):
+    _check_k5(cuda, n, c)
+
+
+@pytest.mark.cuda
+def test_packed_kernel_raises_on_what_it_does_not_take(cuda):
+    x, gamma, beta, scale, shift = [_t(a, cuda) for a in _gn_inputs(2, 64, 32, film=True)]
+    with pytest.raises(ValueError):
+        group_norm_film_silu_packed(x, gamma, beta, scale, shift)  # fp32 x
+    x48 = torch.zeros(2, 64, 48, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # 128 % 48 != 0
+        group_norm_film_silu_packed(x48, gamma, beta, scale, shift)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        group_norm_film_silu_packed(x.bfloat16().requires_grad_(True), gamma, beta, scale, shift)

@@ -8,6 +8,7 @@ from physicsinformeddiffusionmodels_tpu.data import darcy_generator as jgen
 from physicsinformeddiffusionmodels_tpu.data import datasets as jds
 from physicsinformeddiffusionmodels_tpu_torch.data import darcy_generator as tgen
 from physicsinformeddiffusionmodels_tpu_torch.data import datasets as tds
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

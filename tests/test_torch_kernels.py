@@ -18,6 +18,7 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention_block,
     linear_attention_block_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEADS, DH = 8, 32
 H = HEADS * DH
@@ -124,7 +125,8 @@ def test_build_names_the_library_after_its_sources(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libpidm_kernels_")
     assert sorted(p.name for p in _build._sources()) == [
-        "group_norm.cu", "group_norm_bwd.cu", "linear_attention.cu", "linear_attention_bwd.cu"]
+        "group_norm.cu", "group_norm_bwd.cu", "group_norm_packed.cu", "linear_attention.cu",
+        "linear_attention_bwd.cu"]
     # a changed source gives another library name, so a stale build is never loaded
     src = tmp_path / "csrc"
     src.mkdir()

@@ -22,6 +22,7 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention_block_plain,
 )
 from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEW_TABLES = ["sqrt_recip_alphas", "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
               "noise_mean_coeff", "posterior_variance_clipped", "p2_loss_weight"]

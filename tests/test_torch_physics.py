@@ -17,6 +17,7 @@ from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import (
     source_field,
     trapezoidal_weights,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TABLES = [
     "betas", "alphas", "alphas_prod", "alphas_bar_sqrt", "one_minus_alphas_bar_sqrt",

@@ -21,6 +21,7 @@ from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
     make_optimizer,
     train_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR, TOTAL, FINAL = 1e-3, 8, 0.1
 STEPS, SAVE_AT = 6, 2  # the save after step label 2; the resumed run goes on at 3

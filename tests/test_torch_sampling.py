@@ -22,6 +22,7 @@ from physicsinformeddiffusionmodels_tpu_torch.models.convert import torch_state_
 from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet, build_model
 from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
 from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import load_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RUN = Path(__file__).resolve().parent.parent / "results/darcy_300k_fp32head/portable"
 STEPS, B, P = 10, 2, 64

@@ -35,6 +35,7 @@ from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
     resident_train_step,
     train_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # MULTS keeps the JAX compiles short; sample_eval builds the config's (1, 2, 4, 8)
 P, DIM, MULTS, CFG_MULTS = 16, 8, (1, 2), (1, 2, 4, 8)
@@ -232,7 +233,6 @@ def test_metrics_log_keeps_earlier_rows_across_a_resume(tmp_path):
     (dict(gov_eqs="mechanics"), "item 8"),
     (dict(residual_grad_guidance=True), "item 6"),
     (dict(x0_estimation="sample"), "item 5"),
-    (dict(compute_dtype="bfloat16"), "item 3"),
 ])
 def test_driver_refuses_unported_options(kw, item):
     cfg = RunConfig(**{"compute_dtype": "float32", **kw})
@@ -240,13 +240,27 @@ def test_driver_refuses_unported_options(kw, item):
         train.check_supported(cfg)
 
 
-def test_driver_trains_samples_saves_and_resumes_on_the_cpu(tmp_path):
+def test_cli_compute_dtype_defaults_to_the_config():
+    """As in the JAX driver: no --compute-dtype means the config's (bf16)."""
+    cfg = train.config_from_args(train.parse_args([]))
+    assert cfg.compute_dtype == RunConfig().compute_dtype == "bfloat16"
+    assert not cfg.fp32_head
+    cfg = train.config_from_args(train.parse_args(["--compute-dtype", "float32"]))
+    assert cfg.compute_dtype == "float32"
+    assert train.config_from_args(train.parse_args(["--fp32-head"])).fp32_head
+
+
+@pytest.mark.parametrize("dtype_args", [["--compute-dtype", "float32"],
+                                        ["--compute-dtype", "bfloat16", "--fp32-head"]],
+                         ids=["float32", "bfloat16_fp32_head"])
+def test_driver_trains_samples_saves_and_resumes_on_the_cpu(tmp_path, dtype_args):
     for split, n, seed in (("train", 4, 1), ("valid", 2, 100)):
         generate_dataset(n, pixels_per_dim=P, q=16, base_seed=seed, out_dir=tmp_path / split)
     args = ["--pixels-per-dim", str(P), "--data-dir", str(tmp_path / "train"),
             "--valid-data-dir", str(tmp_path / "valid"), "--output-dir", str(tmp_path / "out"),
             "--batch-size", "2", "--sample-freq", "2", "--test-eval-freq", "1",
-            "--log-freq", "1", "--no-samples", "2", "--device", "cpu", "--name", "tiny"]
+            "--log-freq", "1", "--no-samples", "2", "--device", "cpu", "--name", "tiny",
+            *dtype_args]
     cfg = train.config_from_args(train.parse_args(["--iterations", "2", *args]))
     cfg.unet_dim = DIM
     state = train.run_darcy(cfg, "cpu")
@@ -254,7 +268,16 @@ def test_driver_trains_samples_saves_and_resumes_on_the_cpu(tmp_path):
     run = tmp_path / "out" / "tiny"
     assert sorted(p.name for p in (run / "model").glob("*.msgpack")) == ["checkpoint_2.msgpack"]
     assert (run / "training" / "step_2" / "sample_statistics.csv").exists()
-    assert json.loads((run / "config.json").read_text())["compute_dtype"] == "float32"
+    saved = json.loads((run / "config.json").read_text())
+    assert (saved["compute_dtype"], saved["fp32_head"]) == (
+        (dtype_args[1], "--fp32-head" in dtype_args))
+    # JAX's sample_eval reads the run: its config, and the EMA weights into
+    # the Flax tree of the config's UNet
+    jcfg, jraw = jax_sample_eval.load_run(str(run), None)
+    assert (jcfg.compute_dtype, jcfg.fp32_head) == (saved["compute_dtype"], saved["fp32_head"])
+    template = jax.eval_shape(FlaxUNet(dim=DIM, channels=2).init, jax.random.key(0),
+                              np.zeros((1, P, P, 2)), np.zeros((1,), np.int32))
+    serialization.from_state_dict(template, jraw["ema_params"])
     cfg.train_iterations, cfg.resume = 3, True
     state = train.run_darcy(cfg, "cpu")
     assert state.step == 4

@@ -15,6 +15,7 @@ from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
 from physicsinformeddiffusionmodels_tpu_torch.models.convert import torch_state_dict_from_flax
 from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet, build_model
 from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import load_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 RUN = ROOT / "results/darcy_300k_fp32head/portable"
