@@ -55,7 +55,7 @@ the script exits non-zero:
      corrections alone): residual median in the same range, launches K1
      800 and K2 3800 (the corrections call no model), samples that differ
      from phase 6's.
-Phases 9 to 14 share one temporary directory with phase 9's data.
+Phases 9 to 15 share one temporary directory with phase 9's data.
  12. the bf16 backward kernels of K1, K2 and K3 against torch autograd
      through their plain versions on the same bf16 input, at every path
      shape (and the ragged ones) at B=4 and B=64: dx within BF16_DX_TOL of
@@ -83,10 +83,28 @@ Phases 9 to 14 share one temporary directory with phase 9's data.
      K5_TOL of the largest output) at [64, 4096, 32], [64, 1024, 64] and
      [64, 256, 128]; then K5's path, ``profile_gn`` at the level-0 shape,
      with K5's launch count zeroed just before and read just after.
+ 15. K4 and the channel-major UNet (``cm_conv_stages``): (a) K4's forward
+     against its plain version at every (P, Ci, Co) of the cm UNet's calls
+     and a ragged P=24, with and without FiLM, fp32 and bf16, B=4 and B=64
+     (within TOL of the largest output); (b) its backward against autograd
+     through the plain version on the same inputs (fp32 each gradient within
+     GRAD_TOL of its max; bf16 dx and dW within BF16_DX_TOL, dW rounded to
+     bf16, the fp32 parameter gradients within BF16_PARAM_TOL); both timed
+     at B=64 beside their bounds, the plain version and the port's default
+     Block (cuDNN conv + K2) at the same shape; (c) the 300k checkpoint's cm
+     forward at B=8, card vs CPU; (d) cm sampling, 64 samples x 100 steps,
+     fp32, seed 0, launch counts K1 800, K2 2000, K4 1800, the residual
+     median in the phase 6 range and within 10% of phase 6's; (e) one cm
+     train step card vs CPU (9b's rules), then 200 cm steps at B=64 as 9d,
+     K1 8/8, K2 20/20, K4 18/18 per step; (f) 200 cm steps in bf16 with the
+     fp32 head as 13c, K1 8/8, K2 22/22 (20 on bf16 x), K4 16/16 (all on
+     bf16 x); steps/s beside 9d's and 13c's.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
-backward on bf16 x, on the stage run of phase 10 for K3, on ``profile_gn`` for K5),
-error and times, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+backward on bf16 x, on the stage run of phase 10 for K3, on ``profile_gn``
+for K5, on 15e, and 15f for ``bf16_launches``, for K4), error and times
+(K4's also the default Block's and bf16 ones), the nvidia-smi line, and
+``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
 """
 
@@ -156,11 +174,11 @@ EMA_RESIDUAL_BAND = (0.0155, 0.0619)
 # JAX run's mean training loss over its last 20k iterations (0.037)
 TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 200, 64, 0.11
 # the launches of one train step: (forward, forward on bf16 x, backward,
-# backward on bf16 x) of K1, then of K2, one of each per UNet call. In bf16
-# with the fp32 head every call takes bf16 x but the two K2 calls of the
-# head's fp32 ResnetBlock.
-FP32_STEP_LAUNCHES = ((8, 0, 8, 0), (38, 0, 38, 0))
-BF16_STEP_LAUNCHES = ((8, 8, 8, 8), (38, 36, 38, 36))
+# backward on bf16 x) of K1, then of K2, then of K4, one of each per UNet
+# call; the default UNet calls no K4. In bf16 with the fp32 head every call
+# takes bf16 x but the two K2 calls of the head's fp32 ResnetBlock.
+FP32_STEP_LAUNCHES = ((8, 0, 8, 0), (38, 0, 38, 0), (0, 0, 0, 0))
+BF16_STEP_LAUNCHES = ((8, 8, 8, 8), (38, 36, 38, 36), (0, 0, 0, 0))
 N_TRAIN, N_VALID = 256, 64
 # phase 11: CoCoGen corrections in the last N steps and M post-steps; one
 # correction card vs CPU, x and residual each within CORRECTION_TOL of the
@@ -191,6 +209,26 @@ EMA_BF16_LOSS_BAND, EMA_BF16_RESIDUAL_BAND = (0.00967, 0.03868), (0.01842, 0.073
 # one-pass variance against K2's shifted sums)
 K5_TOL = 1e-2
 K5_SHAPES = [(4096, 32), (1024, 64), (256, 128)]
+# phase 15: one UNet(dim=32, cm_conv_stages=True) forward at 64x64, fp32:
+# the (P, Ci, Co, FiLM) of each K4 call, down levels 0 and 1, up stages 2
+# and 3, the final block; under the fp32 head the final block's two calls
+# are natural (cuDNN + K2), so the bf16 + fp32-head forward makes the first
+# 16
+K4_CALLS = ([(64, 32, 32, True), (64, 32, 32, False)] * 2
+            + [(32, 32, 64, True), (32, 64, 64, False), (32, 64, 64, True), (32, 64, 64, False)]
+            + [(32, 128, 32, True), (32, 32, 32, False), (32, 32, 32, True), (32, 32, 32, False)]
+            + [(64, 64, 32, True), (64, 32, 32, False), (64, 32, 32, True), (64, 32, 32, False)]
+            + [(64, 64, 32, False), (64, 32, 32, False)])
+K4_HEAD_CALLS = 16
+# a shape whose P*P (576) is not a multiple of the kernels' 128-pixel tile
+K4_RAGGED = (24, 64, 32)
+# launches of one cm train step (rows as FP32_STEP_LAUNCHES): K4 replaces
+# cuDNN + K2 in 18 Blocks (16 under the fp32 head); K1 runs 4 of its 8
+# calls on transposed channel-major input
+CM_FP32_STEP_LAUNCHES = ((8, 0, 8, 0), (20, 0, 20, 0), (18, 0, 18, 0))
+CM_BF16_STEP_LAUNCHES = ((8, 8, 8, 8), (22, 20, 22, 20), (16, 16, 16, 16))
+# cm sampling's residual median within CM_MEDIAN_RTOL of phase 6's
+CM_MEDIAN_RTOL = 0.1
 
 
 def phase(name: str):
@@ -275,6 +313,29 @@ def k5_work(b: int, n: int, c: int) -> tuple[float, float]:
     """Bytes (bf16 x read and out written once, the folded fp32 scale and
     shift read) and ~10 flops an element (the two sums, the affine, SiLU)."""
     return 2 * 2 * b * n * c + 4 * 2 * b * c, 10.0 * b * n * c
+
+
+def k4_work(b: int, p: int, ci: int, co: int, film: bool, elt: int = 4) -> tuple[float, float]:
+    """Bytes (x read and out written, and the weight read, ``elt`` bytes each;
+    bias, gamma, beta and with FiLM scale and shift read, fp32) and flops of
+    K4: the conv's 2 B P^2 Co 9 Ci and ~10 an output element (GroupNorm,
+    FiLM, SiLU)."""
+    n = p * p
+    nbytes = elt * (b * n * (ci + co) + 9 * ci * co) + 4 * (3 * co + (2 * b * co if film else 0))
+    return nbytes, 2.0 * b * n * co * 9 * ci + 10.0 * b * n * co
+
+
+def k4_bwd_work(b: int, p: int, ci: int, co: int, film: bool,
+                elt: int = 4) -> tuple[float, float]:
+    """Bytes (x and dy read and dx written, the weight read and dW written,
+    ``elt`` bytes each; gamma and beta read, the three parameter gradients
+    written, and with FiLM scale and shift read and their gradients written,
+    fp32) and flops of K4's VJP: dW and dx, each the forward conv's flops,
+    and ~25 an output element (the GroupNorm, FiLM and SiLU chain)."""
+    n = p * p
+    nbytes = (elt * (b * n * (2 * ci + co) + 2 * 9 * ci * co)
+              + 4 * (5 * co + (4 * b * co if film else 0)))
+    return nbytes, 2 * 2.0 * b * n * co * 9 * ci + 25.0 * b * n * co
 
 
 def k3_term(args, ref) -> float:
@@ -401,23 +462,25 @@ def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls
             "bound_by": bound_ms(nbytes, flops, peak)[1], "library_ms": None}
 
 
-def launch_counts() -> tuple:
-    """K1's and K2's launch counts: (forward, forward on bf16 x, backward,
-    backward on bf16 x) of each."""
+def _counted() -> tuple:
+    """K1's, K2's and K4's wrappers, which count their launches."""
+    from physicsinformeddiffusionmodels_tpu_torch.ops.conv_block import conv_gn_film_silu_cm
     from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
     from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
         linear_attention_block)
 
+    return linear_attention_block, group_norm_film_silu, conv_gn_film_silu_cm
+
+
+def launch_counts() -> tuple:
+    """K1's, K2's and K4's launch counts: (forward, forward on bf16 x,
+    backward, backward on bf16 x) of each."""
     return tuple((f.launches, f.bf16_launches, f.backward_launches, f.bf16_backward_launches)
-                 for f in (linear_attention_block, group_norm_film_silu))
+                 for f in _counted())
 
 
 def zero_launch_counts() -> None:
-    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
-    from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
-        linear_attention_block)
-
-    for f in (linear_attention_block, group_norm_film_silu):
+    for f in _counted():
         f.launches = f.bf16_launches = f.backward_launches = f.bf16_backward_launches = 0
 
 
@@ -425,38 +488,23 @@ def launches_of(steps: int, per_step: tuple) -> tuple:
     return tuple(tuple(steps * v for v in row) for row in per_step)
 
 
-def train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
-    """Phase 9; its data stays in ``tmp`` for phase 13. Returns the launch
-    counts of the 200-step run: K1 forward, K1 backward, K2 forward, K2
-    backward."""
+def step_card_vs_cpu(what: str, dev, ds, cm: bool = False) -> None:
+    """One fp32 train step at B=8 from the 300k EMA weights (with
+    ``cm_conv_stages`` when ``cm``) on the card (kernels) and on the CPU
+    (plain versions), on the same batch, t and noise from the training set
+    ``ds``: the loss within STEP_LOSS_RTOL relative, each parameter's
+    gradient within STEP_GRAD_TOL of its largest entry."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
-    from physicsinformeddiffusionmodels_tpu_torch.data.darcy_generator import generate_dataset
-    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
-    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
-        restore_train_state, save_checkpoint)
-    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
-        create_train_state, make_optimizer, resident_train_step)
 
-    ph = phase("9a Darcy data (port generator)")
-    workers = min(8, os.cpu_count() or 1)
-    _, _, res_t, _ = generate_dataset(N_TRAIN, base_seed=1, out_dir=tmp / "train",
-                                      num_workers=workers)
-    _, _, res_v, _ = generate_dataset(N_VALID, base_seed=10_000, out_dir=tmp / "valid",
-                                      num_workers=workers)
-    ds, ds_valid = load_darcy_dataset(tmp / "train"), load_darcy_dataset(tmp / "valid")
-    done(ph, train=len(ds), valid=len(ds_valid), workers=workers,
-         lstsq_residual_mean=f"{np.concatenate([res_t, res_v]).mean():.3e}")
-
+    ph = phase(what)
     cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
-    cfg.compute_dtype = "float32"
+    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    model.cm_conv_stages = model_cpu.cm_conv_stages = cm
     sched = create_schedule(cfg.diff_steps)
     loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
-
-    ph = phase("9b one train step, card vs CPU")
-    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
     loss_cpu_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, "cpu"), cfg)
     rng = np.random.default_rng(0)
     idx, t = rng.integers(0, N_TRAIN, 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
@@ -482,9 +530,89 @@ def train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
             raise AssertionError(f"{name}: card vs CPU gradient max |diff| {err:.3e} > "
                                  f"{STEP_GRAD_TOL} x max |g| {scale:.3e}")
         worst, compared = max(worst, err / max(scale, 1e-30)), compared + 1
-    del model_cpu, grads, grads_cpu, params_cpu
     done(ph, loss_card=f"{loss.item():.8e}", loss_cpu=f"{loss_cpu.item():.8e}",
          loss_rel=f"{rel:.2e}", grads_compared=compared, worst_grad_rel=f"{worst:.2e}")
+
+
+def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: str):
+    """A training main path: TRAIN_STEPS steps at TRAIN_BATCH from
+    ``model``'s weights with fresh Adam through
+    ``trainer.resident_train_step`` on the device-resident ``data``, with the
+    launch counts zeroed just before and read just after, held to
+    ``per_step`` (``launch_counts()``'s rows) for each step; finite losses,
+    the mean of the last 50 below LAST50_MAX. Returns (the train state, the
+    launch counts, steps/s)."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer, resident_train_step)
+
+    ph = phase(what)
+    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
+    step_gen = torch.Generator(device=data.device)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
+                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
+        losses.append(aux.loss.detach())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got, want = launch_counts(), launches_of(TRAIN_STEPS, per_step)
+    if got != want:
+        raise AssertionError(f"{what}: launches K1, K2, K4 (fwd, fwd bf16, bwd, bwd bf16) "
+                             f"{got}, want {want}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    last50 = float(losses[-50:].mean())
+    if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
+        raise AssertionError(f"{what}: losses finite {np.isfinite(losses).all()}, "
+                             f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
+    steps_per_s = TRAIN_STEPS / seconds
+    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
+         steps_per_s=f"{steps_per_s:.3f}",
+         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
+         peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+         first_loss=f"{losses[0]:.4e}", last50_mean=f"{last50:.4e}",
+         **{f"{k}_fwd_bf16_bwd_bf16": "/".join(map(str, row))
+            for k, row in zip(("k1", "k2", "k4"), got)})
+    print(f"  {smi}", flush=True)
+    return state, got, steps_per_s
+
+
+def train_phase(tmp: Path, dev, smi: str) -> tuple[tuple[int, int, int, int], float]:
+    """Phase 9; its data stays in ``tmp`` for phases 13 and 15. Returns the
+    launch counts of the 200-step run (K1 forward, K1 backward, K2 forward,
+    K2 backward) and its steps/s."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.darcy_generator import generate_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
+        restore_train_state, save_checkpoint)
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer)
+
+    ph = phase("9a Darcy data (port generator)")
+    workers = min(8, os.cpu_count() or 1)
+    _, _, res_t, _ = generate_dataset(N_TRAIN, base_seed=1, out_dir=tmp / "train",
+                                      num_workers=workers)
+    _, _, res_v, _ = generate_dataset(N_VALID, base_seed=10_000, out_dir=tmp / "valid",
+                                      num_workers=workers)
+    ds, ds_valid = load_darcy_dataset(tmp / "train"), load_darcy_dataset(tmp / "valid")
+    done(ph, train=len(ds), valid=len(ds_valid), workers=workers,
+         lstsq_residual_mean=f"{np.concatenate([res_t, res_v]).mean():.3e}")
+
+    cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
+    cfg.compute_dtype = "float32"
+    sched = create_schedule(cfg.diff_steps)
+    loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
+
+    step_card_vs_cpu("9b one train step, card vs CPU", dev, ds)
 
     ph = phase("9c loss of the 300k EMA weights")
     data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
@@ -503,38 +631,10 @@ def train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
     done(ph, mean_loss=f"{ema_loss:.4e}", mean_data_loss=f"{ema_data:.4e}",
          mean_residual_mean_abs=f"{ema_res:.4e}")
 
-    ph = phase("9d training (main path)")
-    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
     data = torch.as_tensor(ds.stacked(), device=dev)
-    step_gen = torch.Generator(device=dev)
-    losses = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
-                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
-        losses.append(aux.loss.detach())
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    got, want = launch_counts(), launches_of(TRAIN_STEPS, FP32_STEP_LAUNCHES)
-    if got != want:
-        raise AssertionError(f"launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) {got}, want {want}")
+    state, got, steps_per_s = train_main_path("9d training (main path)", model, cfg, loss_fn,
+                                              data, FP32_STEP_LAUNCHES, smi)
     counts = (got[0][0], got[0][2], got[1][0], got[1][2])
-    losses = torch.stack(losses).cpu().numpy()
-    last50 = float(losses[-50:].mean())
-    if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
-        raise AssertionError(f"training losses: finite {np.isfinite(losses).all()}, "
-                             f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
-         steps_per_s=f"{TRAIN_STEPS / seconds:.3f}",
-         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
-         peak_memory_gib=f"{peak_gib:.2f}", first_loss=f"{losses[0]:.4e}",
-         last50_mean=f"{last50:.4e}", k1_fwd_bwd=f"{counts[0]}/{counts[1]}",
-         k2_fwd_bwd=f"{counts[2]}/{counts[3]}")
-    print(f"  {smi}", flush=True)
 
     ph = phase("9e checkpoint save and restore")
     save_checkpoint(tmp / "ckpt", TRAIN_STEPS - 1, model=state.model, ema=state.ema,
@@ -581,7 +681,7 @@ def train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int]:
     if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
         raise AssertionError(f"sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_after_4_steps=f"{summary['residual_median']:.3e}")
-    return counts
+    return counts, steps_per_s
 
 
 def step_grads(loss_fn, model, batch, t, noise):
@@ -619,7 +719,7 @@ def bf16_step_phase(ds, dev) -> None:
     # the activations reach K1 and K2 in bf16 (all but the fp32 head's K2)
     launched = tuple(tuple(a - b for a, b in zip(*rows)) for rows in zip(launch_counts(), before))
     if launched != BF16_STEP_LAUNCHES:
-        raise AssertionError(f"bf16 step launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) "
+        raise AssertionError(f"bf16 step launches K1, K2, K4 (fwd, fwd bf16, bwd, bwd bf16) "
                              f"{launched}, want {BF16_STEP_LAUNCHES}")
     loss32, grads32 = step_grads(loss_fns[dev], models["float32", dev], *on[dev])
     loss_cpu, grads_cpu = step_grads(loss_fns["cpu"], models["bfloat16", "cpu"], *on["cpu"])
@@ -672,16 +772,14 @@ def bf16_step_phase(ds, dev) -> None:
          worst_tensor_share_of_limit=f"{worst:.2f}", launches=launched)
 
 
-def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int]:
+def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, float]:
     """Phase 13 on phase 9's data in ``tmp``. Returns the bf16 backward
-    launch counts of the 200-step bf16 run: K1, K2."""
+    launch counts of the 200-step bf16 run (K1, K2) and its steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
-    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
-        create_train_state, make_optimizer, resident_train_step)
 
     ds, ds_valid = load_darcy_dataset(tmp / "train"), load_darcy_dataset(tmp / "valid")
     # the run's own config: bf16 compute with the fp32 head
@@ -710,40 +808,10 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int]:
     done(ph, mean_loss=f"{ema_loss:.4e}", mean_data_loss=f"{ema_data:.4e}",
          mean_residual_mean_abs=f"{ema_res:.4e}")
 
-    ph = phase("13c bf16 training (main path)")
-    model.train()
-    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
     data = torch.as_tensor(ds.stacked(), device=dev)
-    step_gen = torch.Generator(device=dev)
-    losses = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
-                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
-        losses.append(aux.loss.detach())
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    got, want = launch_counts(), launches_of(TRAIN_STEPS, BF16_STEP_LAUNCHES)
-    if got != want:
-        raise AssertionError(f"bf16 launches K1, K2 (fwd, fwd bf16, bwd, bwd bf16) {got}, "
-                             f"want {want}")
-    losses = torch.stack(losses).float().cpu().numpy()
-    last50 = float(losses[-50:].mean())
-    if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
-        raise AssertionError(f"bf16 training losses: finite {np.isfinite(losses).all()}, "
-                             f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    state, got, steps_per_s = train_main_path("13c bf16 training (main path)", model.train(),
+                                              cfg, loss_fn, data, BF16_STEP_LAUNCHES, smi)
     del state, model
-    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
-         steps_per_s=f"{TRAIN_STEPS / seconds:.3f}",
-         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
-         peak_memory_gib=f"{peak_gib:.2f}", first_loss=f"{losses[0]:.4e}",
-         last50_mean=f"{last50:.4e}", k1_fwd_bf16_bwd_bf16="/".join(map(str, got[0])),
-         k2_fwd_bf16_bwd_bf16="/".join(map(str, got[1])))
-    print(f"  {smi}", flush=True)
 
     ph = phase("13d bf16 training CLI and bf16 sample_eval of its checkpoint")
     out = tmp / "runs_bf16"
@@ -762,7 +830,7 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int]:
         raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
          sampling_seconds=f"{summary['seconds']:.2f}")
-    return got[0][3], got[1][3]
+    return got[0][3], got[1][3], steps_per_s
 
 
 def k5_phase(dev, randn) -> dict:
@@ -883,6 +951,208 @@ def k3_phase(dev, randn, k1_args, distinct) -> tuple[dict, dict]:
     print("  level-0 stage (B=64, 64x64, C=32), device ms per call: " + json.dumps(times),
           flush=True)
     return k3, k3b
+
+
+def k4_phase(dev, randn) -> tuple[dict, dict]:
+    """Phases 15a-b: K4's forward and backward against the plain version on
+    the same inputs, at every (P, Ci, Co) of K4_CALLS and K4_RAGGED, with and
+    without FiLM, fp32 and bf16, at B=4 and B=64; at B=64 the path's calls
+    are timed (CUDA-graph replay) beside the plain version and the port's
+    default Block at the same shape (cuDNN's conv, then K2). Returns K4's
+    forward and backward entries: one fp32 UNet pass's calls (K4_CALLS) and
+    one bf16 + fp32-head pass's (the first K4_HEAD_CALLS), times and bounds
+    summed; their launches come from phase 15e-f."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import Block
+    from physicsinformeddiffusionmodels_tpu_torch.ops import conv_block as cb
+    from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
+
+    def k4_args(b, p, ci, co, film, dtype):
+        return [randn(b, ci, p * p).to(dtype), randn(co, ci, 3, 3, scale=(9 * ci) ** -0.5),
+                randn(co, scale=0.1), randn(co, scale=0.1, shift=1.0), randn(co, scale=0.1),
+                randn(b, co, scale=0.1) if film else None,
+                randn(b, co, scale=0.1) if film else None]
+
+    def default_block(args, p):
+        """The port's default Block with the same weights, and x as NHWC."""
+        x, w, bias, gamma, beta, scale, shift = args
+        b, ci, _ = x.shape
+        block = Block(ci, w.shape[0], dtype=x.dtype if x.dtype != torch.float32 else None)
+        block = block.to(dev)
+        block.load_state_dict({"weight": w, "bias": bias, "gn_scale": gamma, "gn_bias": beta})
+        x_nhwc = x.transpose(1, 2).reshape(b, p, p, ci).contiguous()
+        film = None if scale is None else (scale, shift)
+        return (lambda xn: block(xn, film)), list(block.parameters()), x_nhwc
+
+    path = set(K4_CALLS)
+    shapes = list(dict.fromkeys(c[:3] for c in K4_CALLS)) + [K4_RAGGED]
+    times = {}  # (dtype, call) -> fwd and bwd: ms, plain_ms, default_block_ms, bound_ms
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        elt, peak = (2, PEAK_BF16_FLOPS) if bf16 else (4, PEAK_FP32_FLOPS)
+        for b in (4, 64):
+            for p, ci, co in shapes:
+                for film in (True, False):
+                    call = (p, ci, co, film)
+                    args = k4_args(b, p, ci, co, film, dtype)
+                    kernel = lambda *a: cb.conv_gn_film_silu_cm(*a, p)  # noqa: E731
+                    plain = lambda *a: cb.conv_gn_film_silu_cm_plain(*a, p)  # noqa: E731
+                    # 15a: forward, within TOL of the largest output
+                    out, ref = kernel(*args), plain(*args)
+                    scale = ref.float().abs().max().item()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    tol = TOL["bf16" if bf16 else "fp32"]
+                    if out.dtype != dtype or not torch.isfinite(out).all() or err > tol * scale:
+                        raise AssertionError(f"K4 {dtype} B={b} {call}: max |diff| {err:.3e} "
+                                             f"> {tol} x max |out| {scale:.3e} ({out.dtype})")
+                    if not bf16:
+                        max_err["fwd"] = max(max_err["fwd"], err)
+                    # 15b: backward through autograd, against autograd on plain
+                    dy = torch.randn(out.shape, device=dev).to(dtype)
+                    worst = 0.0
+                    for name, g, r in zip(("dx", "dw", "dbias", "dgamma", "dbeta", "dscale",
+                                           "dshift"), grads_of(kernel, args, dy),
+                                          grads_of(plain, args, dy)):
+                        rounded = bf16 and name in ("dx", "dw")
+                        tol = (BF16_DX_TOL if rounded else BF16_PARAM_TOL) if bf16 else GRAD_TOL
+                        scale = r.float().abs().max().item()
+                        err = (g.float() - r.float()).abs().max().item()
+                        if (g.dtype != r.dtype or not torch.isfinite(g).all()
+                                or err > tol * scale):
+                            raise AssertionError(f"K4 backward {dtype} B={b} {call} {name}: max "
+                                                 f"|diff| {err:.3e} > {tol} x max |g| "
+                                                 f"{scale:.3e} ({g.dtype}, autograd {r.dtype})")
+                        if bf16 and name == "dw" and not torch.equal(g, g.bfloat16().float()):
+                            raise AssertionError(f"K4 backward bf16 B={b} {call}: dW is not "
+                                                 "rounded to bf16")
+                        worst = max(worst, err / max(scale, 1e-30))
+                        if not bf16:
+                            max_err["bwd"] = max(max_err["bwd"], err)
+                    if b == 64 and call in path:
+                        fwd_default, block_params, x_nhwc = default_block(args, p)
+                        x, w, bias, gamma, beta, sc, sh = args
+                        if sc is None:
+                            sc = sh = torch.zeros(b, co, device=dev)
+                        wflat = cb.flatten_weight(w, dtype)
+                        saved = cb.launch_forward(x, wflat, bias, gamma, beta, sc, sh, p)[1:]
+                        b_ms, b_by = bound_ms(*k4_work(b, p, ci, co, film, elt), peak)
+                        bb_ms, bb_by = bound_ms(*k4_bwd_work(b, p, ci, co, film, elt), peak)
+                        with torch.no_grad():
+                            f_ms = {"ms": graph_ms(lambda: kernel(*args)),
+                                    "plain_ms": graph_ms(lambda: plain(*args)),
+                                    "default_block_ms": graph_ms(lambda: fwd_default(x_nhwc)),
+                                    "bound_ms": b_ms, "bound_by": b_by}
+                        # a backward's time: its forward and backward, less the
+                        # forward (the kernel's: the backward launch alone)
+                        leaves = [x_nhwc.requires_grad_(True), *block_params]
+                        dy_nhwc = dy.transpose(1, 2).reshape(x_nhwc.shape[:3] + (co,))
+                        bwd_ms = {
+                            "ms": graph_ms(lambda: cb.launch_backward(
+                                dy, x, wflat, gamma, beta, sc, sh, *saved, p), reps=5),
+                            "plain_ms": graph_ms(lambda: grads_of(plain, args, dy), reps=5)
+                            - f_ms["plain_ms"],
+                            "default_block_ms": graph_ms(lambda: torch.autograd.grad(
+                                fwd_default(leaves[0]), leaves, dy_nhwc), reps=5)
+                            - f_ms["default_block_ms"],
+                            "bound_ms": bb_ms, "bound_by": bb_by}
+                        times[dtype, call] = {"fwd": f_ms, "bwd": bwd_ms}
+                        print(f"  K4 {'bf16' if bf16 else 'fp32'} B=64 {call}: forward "
+                              f"{json.dumps(f_ms)}; backward {json.dumps(bwd_ms)}", flush=True)
+                        del saved, leaves
+                    del args, out, ref, dy
+            print(f"  K4 {'bf16' if bf16 else 'fp32'} B={b}: every shape held", flush=True)
+
+    entries = []
+    for part, name, work in (("fwd", "conv_gn_film_silu_cm", k4_work),
+                             ("bwd", "conv_gn_film_silu_cm_backward", k4_bwd_work)):
+        entry = {"name": name, "max_abs_err": max_err[part], "library_ms": None}
+        for dtype, calls, prefix in ((torch.float32, K4_CALLS, ""),
+                                     (torch.bfloat16, K4_CALLS[:K4_HEAD_CALLS], "bf16_")):
+            bf16 = dtype == torch.bfloat16
+            for k in ("ms", "plain_ms", "default_block_ms", "bound_ms"):
+                entry[prefix + k] = sum(times[dtype, call][part][k] for call in calls)
+            nbytes, flops = (sum(v) for v in zip(*(work(64, *call, elt=2 if bf16 else 4)
+                                                   for call in calls)))
+            entry[prefix + "bound_by"] = bound_ms(
+                nbytes, flops, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)[1]
+        entries.append(entry)
+    return entries[0], entries[1]
+
+
+def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict) -> tuple:
+    """Phases 15c-f on phase 9's data in ``tmp``: the cm UNet's checkpoint
+    forward card vs CPU, cm sampling against phase 6's ``plain_summary``,
+    one cm train step card vs CPU, then the cm training main paths, fp32 and
+    bf16 + fp32 head, their steps/s beside 9d's and 13c's (``steps_per_s``).
+    Returns K4's launch counts of the two runs (launch_counts()'s row)."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    ph = phase("15c cm checkpoint forward, card vs CPU")
+    cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
+    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 8))
+    with torch.no_grad():
+        y_default = model(x.to(dev), t.to(dev)).cpu()
+        model.cm_conv_stages = model_cpu.cm_conv_stages = True
+        y = model(x.to(dev), t.to(dev)).cpu()
+        y_ref = model_cpu(x, t)
+    err = (y - y_ref).abs().max().item()
+    # the transplant tolerance, as phase 5
+    if y.shape != (8, 64, 64, 2) or not torch.isfinite(y).all() or err > 5e-4:
+        raise AssertionError(f"cm checkpoint forward: card vs CPU max |diff| {err:.3e}")
+    del model_cpu
+    done(ph, max_abs_err=f"{err:.3e}",
+         cm_vs_default_max_abs_diff=f"{(y - y_default).abs().max().item():.3e}")
+
+    ph = phase("15d cm sampling (main path)")
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, residual, _ = sample_eval.sample_darcy(cfg, model, SAMPLES, 0, dev)
+    res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches = tuple(row[0] for row in launch_counts())
+    want = (8 * STEPS, 20 * STEPS, 18 * STEPS)
+    med, med_default = float(np.nanmedian(res_b)), plain_summary["residual_median"]
+    if launches != want or not (
+            np.isfinite(res_b).all() and RESIDUAL_RANGE[0] <= med <= RESIDUAL_RANGE[1]
+            and abs(med / med_default - 1) <= CM_MEDIAN_RTOL):
+        raise AssertionError(f"cm sampling: launches K1, K2, K4 {launches} (want {want}), "
+                             f"median {med:.4e} (range {RESIDUAL_RANGE}, phase 6 "
+                             f"{med_default:.4e} +- {CM_MEDIAN_RTOL:.0%})")
+    moved = np.abs(samples.cpu().numpy() - plain_summary["samples"]).max()
+    del model
+    done(ph, residual_median=f"{med:.4e}", phase6_median=f"{med_default:.4e}",
+         residual_mean=f"{np.nanmean(res_b):.4e}", sampling_seconds=f"{seconds:.2f}",
+         samples_per_s=f"{SAMPLES / seconds:.2f}", k1_k2_k4_launches="/".join(map(str, launches)),
+         max_abs_x0_cm_minus_default=f"{moved:.3e}")
+
+    ds = load_darcy_dataset(tmp / "train")
+    data = torch.as_tensor(ds.stacked(), device=dev)
+    step_card_vs_cpu("15e one cm train step, card vs CPU", dev, ds, cm=True)
+    counts = []
+    for dtype, per_step, what, before in (
+            ("float32", CM_FP32_STEP_LAUNCHES, "15e cm training, fp32", "9d"),
+            ("bfloat16", CM_BF16_STEP_LAUNCHES, "15f cm training, bf16 + fp32 head", "13c")):
+        cfg, model, _ = sample_eval.load_run(RUN, compute_dtype=dtype, device=dev)
+        model.cm_conv_stages = True
+        cfg.compute_dtype = dtype
+        loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                            train.make_physics(cfg, dev), cfg)
+        state, got, sps = train_main_path(what, model.train(), cfg, loss_fn, data, per_step, smi)
+        print(f"  steps/s: cm {sps:.3f}, default ({before}) {steps_per_s[before]:.3f}",
+              flush=True)
+        counts.append(got[2])
+        del state, model
+    return tuple(counts)
 
 
 def corrected_sampling_phase(dev, plain_summary: dict) -> None:
@@ -1049,9 +1319,10 @@ def main() -> int:
         K2_CALLS, k2_bwd_work)
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
+    steps_per_s = {}
     with tempfile.TemporaryDirectory(prefix="pidm_smoke_") as tmp:
-        k1["launches"], k1b["launches"], k2["launches"], k2b["launches"] = train_phase(
-            Path(tmp), dev, smi)
+        (k1["launches"], k1b["launches"], k2["launches"], k2b["launches"]), steps_per_s["9d"] = \
+            train_phase(Path(tmp), dev, smi)
 
         ph = phase("10 K3 linear attention")
         k3, k3b = k3_phase(dev, randn, k1_args, distinct)
@@ -1085,11 +1356,23 @@ def main() -> int:
              k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
              k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
 
-        k1b16["launches"], k2b16["launches"] = bf16_train_phase(Path(tmp), dev, smi)
+        k1b16["launches"], k2b16["launches"], steps_per_s["13c"] = bf16_train_phase(
+            Path(tmp), dev, smi)
 
-    ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
-    k5 = k5_phase(dev, randn)
-    done(ph, max_abs_err=f"{k5['max_abs_err']:.3e}", launches=k5["launches"])
+        ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
+        k5 = k5_phase(dev, randn)
+        done(ph, max_abs_err=f"{k5['max_abs_err']:.3e}", launches=k5["launches"])
+
+        ph = phase("15ab K4 against its plain version")
+        k4, k4b = k4_phase(dev, randn)
+        done(ph, max_abs_err=f"{k4['max_abs_err']:.3e}",
+             bwd_max_abs_err=f"{k4b['max_abs_err']:.3e}")
+        print("  K4 per UNet pass at B=64 (fp32: 18 calls; bf16 + fp32 head: 16), device ms: "
+              + json.dumps({e["name"]: {k: v for k, v in e.items() if k.endswith("ms")}
+                            for e in (k4, k4b)}), flush=True)
+        fp32_counts, bf16_counts = cm_phase(Path(tmp), dev, smi, summary, steps_per_s)
+        k4["launches"], k4b["launches"] = fp32_counts[0], fp32_counts[2]
+        k4["bf16_launches"], k4b["bf16_launches"] = bf16_counts[1], bf16_counts[3]
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (
@@ -1111,12 +1394,20 @@ def main() -> int:
          "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:184"),
         (k5, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm_packed.cu",
          "scripts/profile_gn.py:53"),
+        (k4, "physicsinformeddiffusionmodels_tpu_torch/csrc/conv_block.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_conv.py:126"),
+        (k4b, "physicsinformeddiffusionmodels_tpu_torch/csrc/conv_block_bwd.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_conv.py:185"),
     ):
         entry.update(route="cuda", source=source, replaces=replaces)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (k1, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5)]}))
+    # K4's entries also carry the default Block's time (cuDNN conv + K2) and
+    # their bf16 + fp32-head figures (bf16_*)
+    print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
+                                   **{k: v for k, v in e.items() if k not in keys}}
+                                  for e in (k1, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5, k4,
+                                            k4b)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,15 @@ GroupNorm-FiLM-SiLU after every 3x3 conv (K2) and the linear-attention
 block (K1) are the CUDA kernels of ``ops/``. ``SpatialLinearAttention``
 (the attention alone, K3) is here too; no UNet configuration builds it.
 
+``UNet(cm_conv_stages=True)`` runs every level stage narrower than 128
+channels channel-major, [B, C, H*W], as the JAX model does (``_use_cm``):
+each ``Block`` there is kernel K4 (``ops/conv_block.py``: the conv, the
+GroupNorm, FiLM and SiLU in one), each ``LinearAttentionBlock`` K1 in its
+channel-major mode, and the layout changes at the stage's entry and exit
+(``channel_major`` / ``from_channel_major``) and at the final block when
+there is no fp32 head. The parameters are the same in both layouts, so the
+flag may also be switched on a built model.
+
 This slice builds the Darcy configuration: zero padding, no
 self-conditioning, no sigmoid head, frame attention at F == 1 only. The
 residual-gradient conditioning modules (``emb_conv_0``, ``emb_conv_1``,
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from physicsinformeddiffusionmodels_tpu_torch.ops.conv_block import MAX_P, conv_gn_film_silu_cm
 from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import group_norm_film_silu
 from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention,
@@ -60,6 +70,19 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
 def _lecun(*shape: int) -> nn.Parameter:
     """A Flax ``lecun_normal``-scaled parameter; fan-in is every dim but the last."""
     return nn.Parameter(torch.randn(*shape) / math.sqrt(math.prod(shape[:-1])))
+
+
+def channel_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> contiguous [B, C, H*W]."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h * w, c).transpose(1, 2).contiguous()
+
+
+def from_channel_major(x_cm: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, C, H*W] -> [B, H, W, C], a view where the strides allow (a
+    convolution's NCHW view of it is then the contiguous x_cm)."""
+    b, c, _ = x_cm.shape
+    return x_cm.transpose(1, 2).reshape(b, h, w, c)
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -128,7 +151,9 @@ class Upsample(nn.Module):
 
 
 class Block(nn.Module):
-    """conv3x3 -> GroupNorm -> (FiLM) -> SiLU; the last three are kernel K2."""
+    """conv3x3 -> GroupNorm -> (FiLM) -> SiLU: a cuDNN conv then kernel K2 on
+    NHWC x, or with ``cm=P`` all four in kernel K4 on channel-major x [B, C,
+    P*P]."""
 
     def __init__(self, cin: int, cout: int, groups: int = 8, dtype=None):
         super().__init__()
@@ -139,16 +164,21 @@ class Block(nn.Module):
         self.groups = groups
         self.dtype = dtype
 
-    def forward(self, x, scale_shift=None):
-        h = _conv(x, self.weight, self.bias, self.dtype, 1, 1)
+    def forward(self, x, scale_shift=None, cm: int = 0):
         scale, shift = scale_shift if scale_shift is not None else (None, None)
+        if cm:
+            return conv_gn_film_silu_cm(x.to(self.dtype or x.dtype), self.weight, self.bias,
+                                        self.gn_scale, self.gn_bias, scale, shift, cm,
+                                        self.groups)
+        h = _conv(x, self.weight, self.bias, self.dtype, 1, 1)
         return group_norm_film_silu(h, self.gn_scale, self.gn_bias, scale, shift,
                                     groups=self.groups)
 
 
 class ResnetBlock(nn.Module):
     """Two blocks, the first FiLM-conditioned on the time embedding, plus a
-    1x1 residual projection when the width changes."""
+    1x1 residual projection when the width changes; ``cm=P`` runs
+    channel-major on [B, C, P*P]."""
 
     def __init__(self, cin: int, cout: int, time_dim: Optional[int] = None, groups: int = 8,
                  dtype=None):
@@ -162,15 +192,18 @@ class ResnetBlock(nn.Module):
             self.res_bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
 
-    def forward(self, x, time_emb=None):
+    def forward(self, x, time_emb=None, cm: int = 0):
         scale_shift = None
         if time_emb is not None:
             emb = _dense(F.silu(time_emb), self.Dense_0, self.dtype).float()
             scale_shift = tuple(e.contiguous() for e in emb.chunk(2, dim=-1))
-        h = self.Block_1(self.Block_0(x, scale_shift))
+        h = self.Block_1(self.Block_0(x, scale_shift, cm), cm=cm)
         if not hasattr(self, "res_kernel"):
             return h + x
         dt = self.dtype or x.dtype
+        if cm:
+            return h + (torch.einsum("bcn,cd->bdn", x.to(dt), self.res_kernel.to(dt))
+                        + self.res_bias.to(dt)[:, None])
         return h + (x.to(dt) @ self.res_kernel.to(dt) + self.res_bias.to(dt))
 
 
@@ -197,7 +230,8 @@ class SpatialLinearAttention(nn.Module):
 
 
 class LinearAttentionBlock(nn.Module):
-    """x + b_out + LA(LN_gamma(x)) over the pixel tokens: kernel K1."""
+    """x + b_out + LA(LN_gamma(x)) over the pixel tokens: kernel K1; ``cm``
+    takes and returns channel-major [B, C, N]."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None):
         super().__init__()
@@ -208,7 +242,11 @@ class LinearAttentionBlock(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(dim))
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
 
-    def forward(self, x):
+    def forward(self, x, cm: bool = False):
+        if cm:
+            return linear_attention_block(x.to(self.dtype or x.dtype), self.ln_gamma, self.w_qkv,
+                                          self.w_out, self.b_out, self.heads, self.dim_head,
+                                          channel_major=True)
         b, h, w, c = x.shape
         tokens = x.reshape(b, h * w, c).to(self.dtype or x.dtype)
         out = linear_attention_block(tokens, self.ln_gamma, self.w_qkv, self.w_out, self.b_out,
@@ -270,20 +308,23 @@ class UNet(nn.Module):
 
     ``dtype`` is the compute dtype (None: float32); parameters stay float32.
     ``fp32_head`` runs the final block and 1x1 conv in float32 under a
-    bf16 ``dtype``.
+    bf16 ``dtype``. ``cm_conv_stages`` runs the level stages narrower than
+    128 channels channel-major through K4 (the module docstring).
     """
 
     def __init__(self, dim: int, channels: int = 2, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), attn_heads: int = 8,
                  attn_dim_head: int = 32, init_kernel_size: int = 7, resnet_groups: int = 8,
                  frame_attention: bool = True, dtype: Optional[torch.dtype] = None,
-                 fp32_head: bool = False):
+                 fp32_head: bool = False, cm_conv_stages: bool = False):
         super().__init__()
         dt, g = dtype, resnet_groups
         heads = (attn_heads, attn_dim_head)
         time_dim = dim * 4
+        self.dim = dim
         self.frame_attention = frame_attention
         self.fp32_head = fp32_head
+        self.cm_conv_stages = cm_conv_stages
         self.dtype = dtype
 
         self.init_conv = Conv2dPadded(channels, dim, init_kernel_size, 1,
@@ -309,6 +350,7 @@ class UNet(nn.Module):
         self.downs = []
         for i, (din, dout) in enumerate(in_out):
             self.downs.append((
+                dout,
                 add("ResnetBlock", ResnetBlock(din, dout, time_dim, g, dt)),
                 add("ResnetBlock", ResnetBlock(dout, dout, time_dim, g, dt)),
                 add("LinearAttentionBlock", LinearAttentionBlock(dout, *heads, dt)),
@@ -323,6 +365,7 @@ class UNet(nn.Module):
         self.ups = []
         for i, (din, dout) in enumerate(reversed(in_out)):
             self.ups.append((
+                din,
                 add("ResnetBlock", ResnetBlock(2 * dout, din, time_dim, g, dt)),
                 add("ResnetBlock", ResnetBlock(din, din, time_dim, g, dt)),
                 add("LinearAttentionBlock", LinearAttentionBlock(din, *heads, dt)),
@@ -332,6 +375,12 @@ class UNet(nn.Module):
         self.final_block = ResnetBlock(2 * dim, dim, None, g, head_dt)
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
         self.head_dtype = head_dt
+
+    def _use_cm(self, width: int, x: torch.Tensor) -> bool:
+        """Whether a stage of ``width`` channels on NHWC ``x`` runs
+        channel-major (JAX's ``_use_cm``; the port pads with zeros only)."""
+        return (self.cm_conv_stages and width < 128 and x.ndim == 4
+                and x.shape[1] == x.shape[2] and x.shape[2] <= MAX_P)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
         """x: [B, H, W, channels]; time: [B] (or scalar) integer timesteps."""
@@ -343,10 +392,16 @@ class UNet(nn.Module):
         t = _dense(self.time_pos_emb(time), self.time_mlp_0, self.dtype)
         t = _dense(F.gelu(t), self.time_mlp_1, self.dtype)
 
-        skips = []
-        for res0, res1, attn, down in self.downs:
-            x = attn(res1(res0(x, t), t))
-            skips.append(x)
+        skips = []  # (layout "cm" or "nat", tensor)
+        for width, res0, res1, attn, down in self.downs:
+            if self._use_cm(width, x):
+                h, w = x.shape[1:3]
+                xc = attn(res1(res0(channel_major(x), t, cm=h), t, cm=h), cm=True)
+                skips.append(("cm", xc))
+                x = from_channel_major(xc, h, w)
+            else:
+                x = attn(res1(res0(x, t), t))
+                skips.append(("nat", x))
             if down is not None:
                 x = down(x)
 
@@ -357,16 +412,30 @@ class UNet(nn.Module):
             x = self.mid_frame_attn(x)
         x = self.mid_block2(x, t)
 
-        for res0, res1, attn, up in self.ups:
-            x = torch.cat([x, skips.pop()], dim=-1)
-            x = attn(res1(res0(x, t), t))
+        for width, res0, res1, attn, up in self.ups:
+            kind, skip = skips.pop()
+            if kind == "cm" and self._use_cm(width, x):
+                h, w = x.shape[1:3]
+                xc = torch.cat([channel_major(x), skip], dim=1)
+                xc = attn(res1(res0(xc, t, cm=h), t, cm=h), cm=True)
+                x = from_channel_major(xc, h, w)
+            else:
+                if kind == "cm":
+                    skip = from_channel_major(skip, *x.shape[1:3])
+                x = torch.cat([x, skip], dim=-1)
+                x = attn(res1(res0(x, t), t))
             if up is not None:
                 x = up(x)
 
-        x = torch.cat([x, r], dim=-1)
-        if self.fp32_head:
-            x = x.float()
-        x = self.final_block(x)
+        if self._use_cm(self.dim, x) and not self.fp32_head:
+            h, w = x.shape[1:3]
+            xc = torch.cat([channel_major(x), channel_major(r)], dim=1)
+            x = from_channel_major(self.final_block(xc, cm=h), h, w)
+        else:
+            x = torch.cat([x, r], dim=-1)
+            if self.fp32_head:
+                x = x.float()
+            x = self.final_block(x)
         c = self.final_conv
         return _conv(x, c.weight, c.bias, self.head_dtype)
 

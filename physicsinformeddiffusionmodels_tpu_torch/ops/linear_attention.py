@@ -157,13 +157,21 @@ class _LinearAttentionBlock(torch.autograd.Function):
 
 def linear_attention_block(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Tensor,
                            w_out: torch.Tensor, b_out: torch.Tensor, heads: int = 8,
-                           dim_head: int = 32, eps: float = 1e-5) -> torch.Tensor:
+                           dim_head: int = 32, eps: float = 1e-5,
+                           channel_major: bool = False) -> torch.Tensor:
     """Fused residual block ``x + b_out + LA(LN_gamma(x))``.
 
-    x: [B, N, C] (fp32 or bf16, contiguous); gamma, b_out: [C] fp32;
-    w_qkv: [C, 3H] fp32; w_out: [H, C] fp32, H = heads * dim_head. The
-    kernels take 8 heads of 32 dims and C <= 1024.
+    x: [B, N, C] (fp32 or bf16, contiguous), or [B, C, N] with
+    ``channel_major``; gamma, b_out: [C] fp32; w_qkv: [C, 3H] fp32; w_out:
+    [H, C] fp32, H = heads * dim_head. The kernels take 8 heads of 32 dims
+    and C <= 1024, token-major: a channel-major x is transposed into a
+    contiguous copy, and the result comes back as a [B, C, N] view of the
+    token-major output.
     """
+    if channel_major:
+        out = linear_attention_block(x.transpose(1, 2).contiguous(), gamma, w_qkv, w_out,
+                                     b_out, heads, dim_head, eps)
+        return out.transpose(1, 2)
     if x.device.type == "cpu":
         return linear_attention_block_plain(x, gamma, w_qkv, w_out, b_out, heads, dim_head, eps)
     if x.device.type != "cuda":

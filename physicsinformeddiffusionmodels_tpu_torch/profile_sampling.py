@@ -7,8 +7,8 @@ Runs the main path's sampling (``sample_eval.sample_darcy``: every ancestral
 step and the residual of the result) once to warm up, then once more under
 ``torch.profiler``, fp32, and prints per step: the wall time (host clock
 around synchronised work), the device busy time and idle share of that
-window, and the device time by kernel group (K1, K2, convolutions, matmuls,
-other) and by kernel name. The last line is the same as one JSON object.
+window, and the device time by kernel group (K1, K2, K4, convolutions,
+matmuls, other) and by kernel name. The last line is the same as one JSON object.
 Fails if the profiler saw no device work.
 """
 
@@ -30,6 +30,9 @@ GROUPS = (
     ("K2 group norm bwd", ("gn_bwd",)),
     ("K1 linear attention", ("lab_ctx_kernel", "lab_out_kernel")),
     ("K2 group norm", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("K4 conv block bwd", ("conv_bwd_dz_kernel", "conv_bwd_params_kernel", "conv_dw_kernel",
+                           "conv_dw_reduce_kernel", "conv_dx_kernel")),
+    ("K4 conv block", ("conv_fwd_kernel", "conv_stats_kernel", "conv_apply_kernel")),
     ("convolutions", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
                       "winograd", "fft")),
     ("matmuls", ("gemm", "cutlass", "cublas", "matmul")),

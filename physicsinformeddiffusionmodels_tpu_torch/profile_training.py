@@ -6,14 +6,15 @@
 Trains the checkpoint's EMA weights (fresh Adam) on a device-resident set
 of 256 random fields with the main path's step (``train.
 build_darcy_loss_fn`` + ``trainer.resident_train_step``), in each of
-``CONFIGS``: fp32, and the study's recipe, bf16 compute with the fp32 head.
-For each: three steps to warm up, then ``STEPS`` steps of ``BATCH`` (the
-run's training batch) under ``torch.profiler``. A step's device work does
-not depend on the field values, so no data is generated. Prints per step
-the wall time, the device busy time and idle share, and the device time by
-kernel group (K1 and K2 forward and backward, convolutions, matmuls, other)
-and by kernel name; each configuration's profile ends in a line with the
-same as one JSON object.
+``CONFIGS``: fp32, and the study's recipe, bf16 compute with the fp32 head,
+each with the default UNet and with ``cm_conv_stages`` on (the channel-major
+level stages through K4). For each: three steps to warm up, then ``STEPS``
+steps of ``BATCH`` (the run's training batch) under ``torch.profiler``. A
+step's device work does not depend on the field values, so no data is
+generated. Prints per step the wall time, the device busy time and idle
+share, and the device time by kernel group (K1, K2 and K4 forward and
+backward, convolutions, matmuls, other) and by kernel name; each
+configuration's profile ends in a line with the same as one JSON object.
 """
 
 from __future__ import annotations
@@ -34,17 +35,19 @@ from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
 from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
 
 BATCH, STEPS = 64, 10
-# (compute dtype, fp32 head) of each profiled step
-CONFIGS = (("float32", False), ("bfloat16", True))
+# (compute dtype, fp32 head, channel-major conv stages) of each profiled step
+CONFIGS = (("float32", False, False), ("bfloat16", True, False),
+           ("float32", False, True), ("bfloat16", True, True))
 
 
-def profile(model_dir: str, compute_dtype: str, fp32_head: bool) -> dict:
+def profile(model_dir: str, compute_dtype: str, fp32_head: bool, cm: bool) -> dict:
     dev = torch.device("cuda")
     set_fp32_exact()
     cfg, weights, _ = load_run(model_dir, device="cpu")
     cfg.compute_dtype, cfg.fp32_head = compute_dtype, fp32_head
     model = train.build_model(cfg)
     model.load_state_dict(weights.state_dict())
+    model.cm_conv_stages = cm
     model = model.to(dev)
     loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
                                         train.make_physics(cfg, dev), cfg)
@@ -64,16 +67,17 @@ def profile(model_dir: str, compute_dtype: str, fp32_head: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     r = device_profile(lambda: run(STEPS), STEPS)
     return {**r, "batch": BATCH, "compute_dtype": compute_dtype, "fp32_head": fp32_head,
-            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "cm_conv_stages": cm, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default="results/darcy_300k_fp32head/portable")
     args = ap.parse_args(argv)
-    for dtype, head in CONFIGS:
-        report(profile(args.model_dir, dtype, head),
-               f"train batch {BATCH}, {dtype}{' + fp32 head' if head else ''}")
+    for dtype, head, cm in CONFIGS:
+        report(profile(args.model_dir, dtype, head, cm),
+               f"train batch {BATCH}, {dtype}{' + fp32 head' if head else ''}"
+               f"{', cm_conv_stages' if cm else ''}")
 
 
 if __name__ == "__main__":

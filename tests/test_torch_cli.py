@@ -49,7 +49,7 @@ def test_port_imports_nothing_of_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("models.unet", "train", "data.datasets", "data.darcy_generator",
                  "training.trainer", "diffusion.losses", "profile_attn", "profile_gn",
-                 "utils.timing", "utils.viz"):
+                 "utils.timing", "utils.viz", "ops.conv_block"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 33
     assert report["banned"] == []

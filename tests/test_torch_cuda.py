@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from physicsinformeddiffusionmodels_tpu_torch.ops.conv_block import (
+    conv_gn_film_silu_cm,
+    conv_gn_film_silu_cm_plain,
+)
 from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
     group_norm_film_silu,
     group_norm_film_silu_packed,
@@ -64,8 +68,10 @@ def _t(a, device):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    # the plain versions' matmuls in full fp32, as the sampling path runs them
+    # the plain versions' matmuls and convolutions in full fp32, as the
+    # sampling path runs them
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -506,3 +512,140 @@ def test_packed_kernel_raises_on_what_it_does_not_take(cuda):
         group_norm_film_silu_packed(x48, gamma, beta, scale, shift)
     with pytest.raises(NotImplementedError, match="forward only"):
         group_norm_film_silu_packed(x.bfloat16().requires_grad_(True), gamma, beta, scale, shift)
+
+
+# K4, the channel-major conv block (3x3 conv + GroupNorm + FiLM + SiLU)
+
+# (P, Ci, Co): the level-0 Block of the cm UNet, and a ragged image (P*P =
+# 576 pixels, not a multiple of the kernels' 128-pixel tile) with Ci != Co
+K4_SHAPES = [(64, 32, 32), (24, 64, 32)]
+# kernel vs plain version, as a share of the largest output: fp32, the same
+# products summed in another order; bf16, the output's rounding
+K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _k4_inputs(b, p, ci, co, film, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, ci, p * p)).astype(np.float32)
+    w = (rng.standard_normal((co, ci, 3, 3)) / np.sqrt(9 * ci)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(co)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(co)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(co)).astype(np.float32)
+    scale = (0.1 * rng.standard_normal((b, co))).astype(np.float32) if film else None
+    shift = (0.1 * rng.standard_normal((b, co))).astype(np.float32) if film else None
+    return x, w, bias, gamma, beta, scale, shift
+
+
+def _k4_args(cuda, b, p, ci, co, film, dtype):
+    args = [_t(a, cuda) for a in _k4_inputs(b, p, ci, co, film)]
+    return [args[0].to(dtype), *args[1:]]
+
+
+def _check_k4(cuda, p, ci, co, film, dtype, b=4):
+    args = _k4_args(cuda, b, p, ci, co, film, dtype)
+    before = (conv_gn_film_silu_cm.launches, conv_gn_film_silu_cm.bf16_launches)
+    got = conv_gn_film_silu_cm(*args, p)
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    assert (conv_gn_film_silu_cm.launches, conv_gn_film_silu_cm.bf16_launches) == (
+        before[0] + 1, before[1] + bf16)
+    assert got.dtype == dtype and got.shape == (b, co, p * p)
+    ref = conv_gn_film_silu_cm_plain(*args, p)
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= K4_TOL[dtype] * scale, (
+        f"max |diff| {err:.3e} > {K4_TOL[dtype]} x max |out| {scale:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("p,ci,co", K4_SHAPES)
+def test_conv_block_kernel_matches_plain(cuda, p, ci, co, film, dtype):
+    _check_k4(cuda, p, ci, co, film, dtype)
+
+
+K4_GRADS = ("dx", "dw", "dbias", "dgamma", "dbeta", "dscale", "dshift")
+
+
+def _check_k4_backward(cuda, p, ci, co, dtype, b=4):
+    """The seven gradients of <K4(*args), dy> through the kernels against
+    autograd through the plain version: fp32 each within GRAD_TOL of its
+    max; bf16 dx and dW (rounded to bf16, as the TPU kernel's VJP returns
+    it) within BF16_DX_TOL, the fp32 parameter gradients within
+    BF16_PARAM_TOL."""
+    args = _k4_args(cuda, b, p, ci, co, True, dtype)
+    dy = torch.randn(b, co, p * p, generator=torch.Generator().manual_seed(p + ci)).to(cuda)
+    dy = dy.to(dtype)
+    _, ref = _grads(lambda *a: conv_gn_film_silu_cm_plain(*a, p), args, dy)
+    counts = ("launches", "bf16_launches", "backward_launches", "bf16_backward_launches")
+    before = [getattr(conv_gn_film_silu_cm, k) for k in counts]
+    _, got = _grads(lambda *a: conv_gn_film_silu_cm(*a, p), args, dy)
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    assert [getattr(conv_gn_film_silu_cm, k) - v for k, v in zip(counts, before)] == [
+        1, bf16, 1, bf16]
+    for name, g, r in zip(K4_GRADS, got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        if dtype == torch.float32:
+            tol = GRAD_TOL
+        else:
+            tol = BF16_DX_TOL if name in ("dx", "dw") else BF16_PARAM_TOL
+        if dtype == torch.bfloat16 and name == "dw":
+            assert torch.equal(g, g.bfloat16().float()), "dW is not rounded to bf16"
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol * scale, (
+            f"{name}: max |diff| {err:.3e} > {tol} x max |g| {scale:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("p,ci,co", K4_SHAPES)
+def test_conv_block_backward_matches_plain(cuda, p, ci, co, dtype):
+    _check_k4_backward(cuda, p, ci, co, dtype)
+
+
+# one-line breaks of K4, each of which a check above must catch:
+# name -> (file, text replaced, replacement, the check that must fail)
+K4_MUTANTS = {
+    "forward drops the dc = +1 column mask": (
+        "conv_tile.cuh", "ok = idx >= 0 && idx < N && xc >= 0 && xc < P;",
+        "ok = idx >= 0 && idx < N && xc >= 0;", "forward"),
+    "dx drops the column mask on dz": (
+        "conv_tile.cuh", "ok = idx >= 0 && idx < N && zc >= 0 && zc < P;",
+        "ok = idx >= 0 && idx < N;", "backward"),
+    "dscale left at zero": (
+        "conv_block_bwd.cu", "dscale[b * Co + c] = fmaf(ga, a1, be * a0);",
+        "dscale[b * Co + c] = 0.f;", "backward"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(K4_MUTANTS))
+def test_conv_block_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+    filename, old, new, check = K4_MUTANTS[mutant]
+    with _patched_kernels(monkeypatch, tmp_path, filename, old, new):
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(AssertionError):
+                if check == "forward":
+                    _check_k4(cuda, 24, 64, 32, True, dtype)
+                else:
+                    _check_k4_backward(cuda, 24, 64, 32, dtype)
+
+
+@pytest.mark.cuda
+def test_conv_block_wrapper_raises_on_what_it_does_not_take(cuda):
+    x, w, bias, gamma, beta, scale, shift = _k4_args(cuda, 2, 8, 32, 32, True, torch.float32)
+    with pytest.raises(ValueError):  # Ci not a multiple of 16
+        conv_gn_film_silu_cm(x[:, :8].contiguous(), w[:, :8].contiguous(), bias, gamma, beta,
+                             scale, shift, 8)
+    with pytest.raises(ValueError):  # N != P * P
+        conv_gn_film_silu_cm(x, w, bias, gamma, beta, scale, shift, 7)
+    with pytest.raises(ValueError):  # not contiguous
+        conv_gn_film_silu_cm(x.transpose(1, 2).contiguous().transpose(1, 2), w, bias, gamma,
+                             beta, scale, shift, 8)
+    with pytest.raises(ValueError):  # fp64 parameters
+        conv_gn_film_silu_cm(x, w, bias.double(), gamma, beta, scale, shift, 8)
+    with pytest.raises(ValueError, match="p <= 127"):
+        conv_gn_film_silu_cm(x, w, bias, gamma, beta, scale, shift, 128)

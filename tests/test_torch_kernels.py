@@ -125,8 +125,8 @@ def test_build_names_the_library_after_its_sources(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libpidm_kernels_")
     assert sorted(p.name for p in _build._sources()) == [
-        "group_norm.cu", "group_norm_bwd.cu", "group_norm_packed.cu", "linear_attention.cu",
-        "linear_attention_bwd.cu"]
+        "conv_block.cu", "conv_block_bwd.cu", "group_norm.cu", "group_norm_bwd.cu",
+        "group_norm_packed.cu", "linear_attention.cu", "linear_attention_bwd.cu"]
     # a changed source gives another library name, so a stale build is never loaded
     src = tmp_path / "csrc"
     src.mkdir()
@@ -136,6 +136,10 @@ def test_build_names_the_library_after_its_sources(monkeypatch, tmp_path):
     assert _build.library_path() == path
     (src / "group_norm.cu").write_text("// changed\n")
     assert _build.library_path() != path
+    # and so does a changed header
+    changed = _build.library_path()
+    (src / "conv_tile.cuh").write_text("// changed\n")
+    assert _build.library_path() not in (path, changed)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
