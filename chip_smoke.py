@@ -10,7 +10,9 @@ the script exits non-zero:
   3. K1, the fused linear-attention block, against its plain PyTorch
      version: all Darcy (N, C) shapes at B=4, ragged N, bf16, and the main
      path's shapes at B=64, where kernel and plain version are timed
-     (device time: the calls are replayed from a CUDA graph).
+     (device time: the calls are replayed from a CUDA graph), in fp32 and
+     on bf16 x; then, untimed, fp32 and bf16 at the mechanics study's
+     (N, C) at B=6 (MECHANICS_CALLS, C = 128 to 1024).
   4. K2, GroupNorm-FiLM-SiLU, the same way, with and without FiLM.
   5. one fp32 UNet forward (B=8) of the committed 300k Darcy checkpoint on
      the card (kernels) against the same forward on the CPU (plain
@@ -22,7 +24,10 @@ the script exits non-zero:
      2x the JAX package's fp32 evaluation of the same checkpoint (1.351e-2).
   7. K1's backward kernel against torch autograd through the plain version,
      every path shape and two ragged ones at B=4 and B=64 (each gradient
-     within GRAD_TOL of the largest entry of its tensor), timed at B=64.
+     within GRAD_TOL of the largest entry of its tensor), timed at B=64;
+     then, untimed, fp32 and bf16 at MECHANICS_CALLS at B=6 (bf16 within
+     BF16_DX_TOL and BF16_PARAM_TOL); and the backward's workspace at B=64,
+     N=4096, C=32, at most K1_BWD_WORKSPACE_MAX.
   8. K2's backward kernel the same way, with and without FiLM.
   9. the training path: (a) a Darcy set from the port's generator (256
      train, 64 valid); (b) one train step at B=8 from the 300k EMA weights,
@@ -101,10 +106,10 @@ Phases 9 to 15 share one temporary directory with phase 9's data.
      bf16 x); steps/s beside 9d's and 13c's.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
-backward on bf16 x, on the stage run of phase 10 for K3, on ``profile_gn``
-for K5, on 15e, and 15f for ``bf16_launches``, for K4), error and times
-(K4's also the default Block's and bf16 ones), the nvidia-smi line, and
-``{"ok": true, "device": {...}}``.
+forward and backward on bf16 x, on the stage run of phase 10 for K3, on
+``profile_gn`` for K5, on 15e, and 15f for ``bf16_launches``, for K4), error
+and times (K4's also the default Block's and bf16 ones), the nvidia-smi
+line, and ``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
 """
 
@@ -143,6 +148,13 @@ K1_GAIN, K1_MIN_TERM = 100.0, 1.0
 # each K2 call with its FiLM flag
 K1_CALLS = [(4096, 32), (1024, 64), (256, 128), (64, 256),
             (64, 128), (256, 64), (1024, 32), (4096, 32)]
+# the (N, C) at which UNet(dim=128) of the mechanics study calls K1; checked
+# at B=6, untimed (the kernels tile C through shared memory in 32-channel
+# slices)
+MECHANICS_CALLS = [(4096, 128), (1024, 256), (256, 512), (64, 1024)]
+# K1's backward keeps no per-token workspace: at the level-0 shape (B=64,
+# N=4096, C=32) its workspace (partial sums a block) stays below this
+K1_BWD_WORKSPACE_MAX = 64 * 2**20
 K2_CALLS = ([(n, c, film) for n, c in K1_CALLS[:4] + [(64, 256)] + K1_CALLS[4:]
              for film in (True, False) for _ in range(2)]
             + [(4096, 32, False)] * 2)
@@ -258,9 +270,11 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k1_work(b: int, n: int, c: int, h: int = 256, dh: int = 32) -> tuple[float, float]:
-    """Bytes (x read, out written, weights read once) and matmul flops of K1."""
-    nbytes = 4 * (2 * b * n * c + 3 * h * c + h * c + 2 * c)
+def k1_work(b: int, n: int, c: int, h: int = 256, dh: int = 32,
+            elt: int = 4) -> tuple[float, float]:
+    """Bytes (x read and out written, ``elt`` bytes each; weights read once,
+    fp32) and matmul flops of K1."""
+    nbytes = elt * 2 * b * n * c + 4 * (3 * h * c + h * c + 2 * c)
     flops = 2 * b * (n * c * 3 * h + n * h * dh + h * dh * c + n * h * c)
     return nbytes, flops
 
@@ -460,6 +474,64 @@ def check_backward(name, kernel, plain, save, bwd, make_args, shapes, path_calls
     nbytes, flops = (sum(w) for w in zip(*(work(64, *call, elt=elt) for call in path_calls)))
     return {"name": name, "max_abs_err": max_err, **totals,
             "bound_by": bound_ms(nbytes, flops, peak)[1], "library_ms": None}
+
+
+def check_bf16_forward(name, kernel, plain, make_args, path_calls, work) -> dict:
+    """Hold ``kernel`` on bf16 x against ``plain`` on the same input at the
+    main path's B=64 calls (TOL["bf16"], the output's rounding) and time both
+    there, beside the bf16 bound. Returns the entry."""
+    from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
+
+    per_call, max_err = {}, 0.0
+    for call in dict.fromkeys(path_calls):
+        args = make_args(64, *call)
+        args[0] = args[0].bfloat16()
+        max_err = max(max_err, compare(kernel(*args), plain(*args), TOL["bf16"],
+                                       f"{name} B=64 {call}"))
+        b_ms, b_by = bound_ms(*work(64, *call, elt=2), PEAK_BF16_FLOPS)
+        per_call[call] = {"ms": graph_ms(lambda: kernel(*args)),
+                          "plain_ms": graph_ms(lambda: plain(*args)),
+                          "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name} B=64 {call}: " + json.dumps(per_call[call]), flush=True)
+        del args
+    totals = {k: sum(per_call[call][k] for call in path_calls)
+              for k in ("ms", "plain_ms", "bound_ms")}
+    nbytes, flops = (sum(w) for w in zip(*(work(64, *call, elt=2) for call in path_calls)))
+    return {"name": name, "max_abs_err": max_err, **totals,
+            "bound_by": bound_ms(nbytes, flops, PEAK_BF16_FLOPS)[1], "library_ms": None}
+
+
+def check_mechanics(name, kernel, plain, make_args, backward: bool) -> None:
+    """Hold K1 (its forward, or its backward through autograd) against its
+    plain version at MECHANICS_CALLS, B=6, fp32 and bf16, untimed, with the
+    tolerances of the path's shapes."""
+    import torch
+
+    for call in MECHANICS_CALLS:
+        for bf16 in (False, True):
+            args = make_args(6, *call)
+            if bf16:
+                args[0] = args[0].bfloat16()
+            what = f"{name} B=6 {call} {'bf16' if bf16 else 'fp32'}"
+            if not backward:
+                ref = plain(*args)
+                if not bf16:
+                    k1_term(args, ref)
+                err = compare(kernel(*args), ref, TOL["bf16" if bf16 else "fp32"], what)
+                print(f"  {what}: max |diff| {err:.3e}", flush=True)
+                continue
+            dy = torch.randn(args[0].shape, device=args[0].device).to(args[0].dtype)
+            tols = (BF16_DX_TOL, BF16_PARAM_TOL) if bf16 else (GRAD_TOL, GRAD_TOL)
+            worst = 0.0
+            for i, (g, r) in enumerate(zip(grads_of(kernel, args, dy), grads_of(plain, args, dy))):
+                scale, err = r.float().abs().max().item(), (g.float() - r.float()).abs().max().item()
+                if g.dtype != r.dtype or not torch.isfinite(g).all() or err > tols[min(i, 1)] * scale:
+                    raise AssertionError(f"{what} gradient {i}: max |diff| {err:.3e} > "
+                                         f"{tols[min(i, 1)]} x max |g| {scale:.3e} ({g.dtype})")
+                worst = max(worst, err / max(scale, 1e-30))
+            print(f"  {what}: max |diff| / max |g| {worst:.2e}", flush=True)
+            del dy
+        del args
 
 
 def _counted() -> tuple:
@@ -772,9 +844,10 @@ def bf16_step_phase(ds, dev) -> None:
          worst_tensor_share_of_limit=f"{worst:.2f}", launches=launched)
 
 
-def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, float]:
-    """Phase 13 on phase 9's data in ``tmp``. Returns the bf16 backward
-    launch counts of the 200-step bf16 run (K1, K2) and its steps/s."""
+def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, float]:
+    """Phase 13 on phase 9's data in ``tmp``. Returns the launch counts of
+    the 200-step bf16 run (K1's forward on bf16 x, K1's and K2's backward on
+    bf16 x) and its steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -830,7 +903,7 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, float]:
         raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
          sampling_seconds=f"{summary['seconds']:.2f}")
-    return got[0][3], got[1][3], steps_per_s
+    return got[0][1], got[0][3], got[1][3], steps_per_s
 
 
 def k5_phase(dev, randn) -> dict:
@@ -1264,7 +1337,12 @@ def main() -> int:
     k1 = check_kernel("linear_attention_block", linear_attention_block,
                       linear_attention_block_plain, k1_args,
                       distinct + [(100, 32), (33, 64)], K1_CALLS, k1_work, part=k1_term)
-    done(ph, max_abs_err=f"{k1['max_abs_err']:.3e}")
+    k1f16 = check_bf16_forward("linear_attention_block_bf16", linear_attention_block,
+                               linear_attention_block_plain, k1_args, K1_CALLS, k1_work)
+    check_mechanics("linear_attention_block", linear_attention_block,
+                    linear_attention_block_plain, k1_args, backward=False)
+    done(ph, max_abs_err=f"{k1['max_abs_err']:.3e}",
+         bf16_max_abs_err=f"{k1f16['max_abs_err']:.3e}")
 
     ph = phase("4 K2 GroupNorm-FiLM-SiLU")
     k2 = check_kernel("group_norm_film_silu", group_norm_film_silu,
@@ -1310,6 +1388,13 @@ def main() -> int:
         linear_attention_block_plain,
         lambda *a: (*a[:4], *la.launch_forward(*a)[1:]), la.launch_backward,
         k1_args, distinct + [(100, 32), (33, 64)], K1_CALLS, k1_bwd_work)
+    check_mechanics("linear_attention_block_backward", linear_attention_block,
+                    linear_attention_block_plain, k1_args, backward=True)
+    work_bytes = 4 * _build.library().pidm_linear_attention_block_bwd_workspace(64, 4096, 32)
+    print(f"  K1 backward workspace at B=64, N=4096, C=32: {work_bytes} bytes "
+          f"({work_bytes / 2**20:.2f} MiB)", flush=True)
+    if work_bytes > K1_BWD_WORKSPACE_MAX:
+        raise AssertionError(f"K1 backward workspace {work_bytes} bytes > {K1_BWD_WORKSPACE_MAX}")
     done(ph, max_abs_err=f"{k1b['max_abs_err']:.3e}")
 
     ph = phase("8 K2 backward")
@@ -1356,8 +1441,8 @@ def main() -> int:
              k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
              k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
 
-        k1b16["launches"], k2b16["launches"], steps_per_s["13c"] = bf16_train_phase(
-            Path(tmp), dev, smi)
+        (k1f16["launches"], k1b16["launches"], k2b16["launches"],
+         steps_per_s["13c"]) = bf16_train_phase(Path(tmp), dev, smi)
 
         ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
         k5 = k5_phase(dev, randn)
@@ -1377,6 +1462,8 @@ def main() -> int:
 
     for entry, source, replaces in (
         (k1, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:468"),
+        (k1f16, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:468"),
         (k2, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:78"),
@@ -1406,8 +1493,8 @@ def main() -> int:
     # their bf16 + fp32-head figures (bf16_*)
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **{k: v for k, v in e.items() if k not in keys}}
-                                  for e in (k1, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5, k4,
-                                            k4b)]}))
+                                  for e in (k1, k1f16, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5,
+                                            k4, k4b)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
 // Shared helpers for the port's kernels: element loads/stores in fp32 or
-// bf16, block-wide reductions, and the token-tile LayerNorm of K1's
-// forward and backward (skipped in K3's mode).
+// bf16, and warp- and block-wide reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,36 +40,6 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   float t = 0.f;
   for (int w = 0; w < n_warps; ++w) t += scratch[w];  // same order in every thread
   return t;
-}
-
-// Copy `tile` token rows starting at n0 into xs[tile][C] as fp32; rows at or
-// beyond N are zero.
-template <typename T>
-__device__ inline void load_tile(float* xs, const T* __restrict__ xb, int n0, int tile, int N,
-                          int C) {
-  const int valid = min(tile, N - n0) * C;
-  const T* src = xb + (long long)n0 * C;
-  for (int i = threadIdx.x; i < tile * C; i += blockDim.x)
-    xs[i] = i < valid ? to_f32(src[i]) : 0.f;
-}
-
-// In-place LayerNorm over C of the first `rows` rows of xs, one warp per row.
-__device__ inline void ln_rows(float* xs, int rows, int C, const float* __restrict__ gamma,
-                        float eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += n_warps) {
-    float* row = xs + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mu;
-      v = fmaf(d, d, v);
-    }
-    const float rstd = rsqrtf(warp_sum(v) / C + eps);
-    for (int c = lane; c < C; c += 32) row[c] = (row[c] - mu) * rstd * gamma[c];
-  }
 }
 
 }  // namespace pidm

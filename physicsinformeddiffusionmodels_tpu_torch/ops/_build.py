@@ -43,15 +43,17 @@ _SIGNATURES = {
     "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 5 + [_F, _I, _P], _I),
     # B, N, C -> floats of workspace
     "pidm_gn_film_silu_bwd_workspace": ([_I] * 3, _L),
-    # x, out, gamma, w_qkv, w_out, b_out, M, stats, B, N, C, eps, bf16, stream
-    "pidm_linear_attention_block": ([_P] * 8 + [_I] * 3 + [_F, _I, _P], _I),
+    # x, out, gamma, w_qkv, w_out, b_out, M, stats, work, B, N, C, eps, bf16, stream
+    "pidm_linear_attention_block": ([_P] * 9 + [_I] * 3 + [_F, _I, _P], _I),
+    # B, N, C -> floats of scratch (K1's and K3's forward)
+    "pidm_linear_attention_block_fwd_workspace": ([_I] * 3, _L),
     # x, dy, gamma, w_qkv, w_out, M, stats, dx, dgamma, dw_qkv, dw_out, db_out,
     # work, B, N, C, eps, bf16, stream
     "pidm_linear_attention_block_bwd": ([_P] * 13 + [_I] * 3 + [_F, _I, _P], _I),
     # B, N, C -> floats of workspace (K1's and K3's backward)
     "pidm_linear_attention_block_bwd_workspace": ([_I] * 3, _L),
-    # x, out, w_qkv, w_out, M, stats, B, N, C, bf16, stream
-    "pidm_linear_attention": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # x, out, w_qkv, w_out, M, stats, work, B, N, C, bf16, stream
+    "pidm_linear_attention": ([_P] * 7 + [_I] * 4 + [_P], _I),
     # x, dy, w_qkv, w_out, M, stats, dx, dw_qkv, dw_out, work, B, N, C, bf16, stream
     "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # x, out, a, b, partials, B, N, C, G, S, eps, stream (K5)

@@ -9,9 +9,13 @@ requires it, the call goes through an ``autograd.Function``: its forward
 launches ``csrc/linear_attention.cu`` and saves the per-head context and
 k-softmax statistics it writes, and its backward
 ``csrc/linear_attention_bwd.cu``, for fp32 and bf16 x alike (dx in x's
-dtype, the parameter gradients in fp32). K3 is a mode of K1's kernels (no
-LN, no b_out, no residual). ``<wrapper>.launches`` and ``.backward_launches``
-count the calls that launched each; ``.bf16_backward_launches`` (both) and
+dtype, the parameter gradients in fp32): fp32 x multiplies in full fp32 on
+the CUDA cores, bf16 x on the tensor cores in bf16 (``csrc/la_tile.cuh``),
+each product's operands rounded to bf16 where the TPU kernel rounds them, as
+the plain version does on bf16 x.
+K3 is a mode of K1's kernels (no LN, no b_out, no residual).
+``<wrapper>.launches`` and ``.backward_launches`` count the calls that
+launched each; ``.bf16_backward_launches`` (both) and
 ``linear_attention_block.bf16_launches`` those of them on bf16 x.
 """
 
@@ -21,7 +25,7 @@ import torch
 
 from physicsinformeddiffusionmodels_tpu_torch.ops import _build
 
-# the kernels' fixed head layout: one thread per hidden column, one warp per head
+# the kernels' fixed head layout: one warp per head
 KERNEL_HEADS, KERNEL_DIM_HEAD = 8, 32
 _STATS = KERNEL_DIM_HEAD * KERNEL_DIM_HEAD + 2 * KERNEL_DIM_HEAD  # ctx, m, z per (row, head)
 
@@ -31,7 +35,8 @@ def linear_attention_plain(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Te
     """Plain PyTorch version of K3, ``LA(x)``, computed in float32 and
     returned in x's dtype. x: [B, N, C]; w_qkv: [C, 3H]; w_out: [H, C] with
     H = heads * dim_head (``linear_attention_reference``)."""
-    return _attention(x.float(), w_qkv, w_out, heads, dim_head).to(x.dtype)
+    attention = _attention_bf16 if x.dtype == torch.bfloat16 else _attention
+    return attention(x.float(), w_qkv, w_out, heads, dim_head).to(x.dtype)
 
 
 def _attention(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, heads: int,
@@ -46,6 +51,32 @@ def _attention(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, heads:
     return torch.einsum("bhde,bnhd->bnhe", ctx, q).reshape(b, n, h) @ w_out.float()
 
 
+def _r(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (and back to fp32), its gradient passed through."""
+    return t + (t.bfloat16().float() - t).detach()
+
+
+def _attention_bf16(x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, heads: int,
+                    dim_head: int) -> torch.Tensor:
+    """``_attention`` on bf16 x: the products' operands rounded to bf16 and
+    summed in fp32 where the TPU kernel's ``_mm``/``_dg`` round them
+    (``_lab_fwd_kernel``, the output projection folded into M), but for M,
+    kept in fp32: one row's M multiplies all of its N tokens, so a rounding
+    of M that flips one way here and the other in the kernel, on fp32
+    noise, would move a whole row's output by a bf16 step."""
+    b, n, _ = x.shape
+    h = heads * dim_head
+    q, k, v = (_r(x) @ _r(w_qkv.float())).split(h, dim=-1)
+    p = q.reshape(b, n, heads, dim_head).softmax(dim=-1)
+    k = k.reshape(b, n, heads, dim_head)
+    ek = torch.exp(k - k.amax(dim=1, keepdim=True).detach())  # a constant, as in the VJP
+    ctx = torch.einsum("bnhd,bnhe->bhde", _r(ek), _r(v.reshape(b, n, heads, dim_head)))
+    ctx = ctx / (ek.sum(dim=1)[..., None] * n)
+    m = torch.einsum("bhde,hec->bhdc", _r(ctx), _r(w_out.float().reshape(heads, dim_head, -1)))
+    m = (m * dim_head**-0.5).reshape(b, h, -1)
+    return _r(p.reshape(b, n, h)) @ m
+
+
 def linear_attention_block_plain(x: torch.Tensor, gamma: torch.Tensor, w_qkv: torch.Tensor,
                                  w_out: torch.Tensor, b_out: torch.Tensor, heads: int = 8,
                                  dim_head: int = 32, eps: float = 1e-5) -> torch.Tensor:
@@ -56,7 +87,8 @@ def linear_attention_block_plain(x: torch.Tensor, gamma: torch.Tensor, w_qkv: to
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     ln = (xf - mu) / torch.sqrt(var + eps) * gamma.float()
-    o = _attention(ln, w_qkv, w_out, heads, dim_head)
+    attention = _attention_bf16 if x.dtype == torch.bfloat16 else _attention
+    o = attention(ln, w_qkv, w_out, heads, dim_head)
     return (o + b_out.float() + xf).to(x.dtype)
 
 
@@ -82,12 +114,14 @@ def _check(x, w_qkv, w_out, heads, dim_head, gamma=None, b_out=None) -> None:
 
 def _saved(x):
     """Empty M [B, 256, C] and stats [B, 8, 1088], fp32: what the forward
-    kernel writes for the backward kernel."""
-    b, _, c = x.shape
+    kernel writes for the backward kernel; and the forward's scratch."""
+    b, n, c = x.shape
     m = torch.empty((b, KERNEL_HEADS * KERNEL_DIM_HEAD, c), dtype=torch.float32,
                     device=x.device)
     stats = torch.empty((b, KERNEL_HEADS, _STATS), dtype=torch.float32, device=x.device)
-    return m, stats
+    work = torch.empty(_build.library().pidm_linear_attention_block_fwd_workspace(b, n, c),
+                       dtype=torch.float32, device=x.device)
+    return m, stats, work
 
 
 def _stream(x) -> int:
@@ -104,10 +138,11 @@ def launch_forward(x, gamma, w_qkv, w_out, b_out, eps: float = 1e-5):
     the backward kernel reads."""
     b, n, c = x.shape
     out = torch.empty_like(x)
-    m, stats = _saved(x)
+    m, stats, work = _saved(x)
     rc = _build.library().pidm_linear_attention_block(
         x.data_ptr(), out.data_ptr(), gamma.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
-        b_out.data_ptr(), m.data_ptr(), stats.data_ptr(), b, n, c, eps, _bf16(x), _stream(x),
+        b_out.data_ptr(), m.data_ptr(), stats.data_ptr(), work.data_ptr(), b, n, c, eps,
+        _bf16(x), _stream(x),
     )
     _build.check(rc, "linear_attention_block")
     linear_attention_block.launches += 1
@@ -192,10 +227,10 @@ def launch_attention_forward(x, w_qkv, w_out):
     stats), as ``launch_forward`` does."""
     b, n, c = x.shape
     out = torch.empty_like(x)
-    m, stats = _saved(x)
+    m, stats, work = _saved(x)
     rc = _build.library().pidm_linear_attention(
         x.data_ptr(), out.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), m.data_ptr(),
-        stats.data_ptr(), b, n, c, _bf16(x), _stream(x),
+        stats.data_ptr(), work.data_ptr(), b, n, c, _bf16(x), _stream(x),
     )
     _build.check(rc, "linear_attention")
     linear_attention.launches += 1

@@ -26,9 +26,9 @@ from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exa
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
-    ("K1 linear attention bwd", ("lab_bwd", "gemm_atb", "reduce_splits")),
+    ("K1 linear attention bwd", ("lab_bwd",)),
     ("K2 group norm bwd", ("gn_bwd",)),
-    ("K1 linear attention", ("lab_ctx_kernel", "lab_out_kernel")),
+    ("K1 linear attention", ("lab_fwd",)),
     ("K2 group norm", ("gn_stats_kernel", "gn_apply_kernel")),
     ("K4 conv block bwd", ("conv_bwd_dz_kernel", "conv_bwd_params_kernel", "conv_dw_kernel",
                            "conv_dw_reduce_kernel", "conv_dx_kernel")),

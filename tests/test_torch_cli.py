@@ -153,11 +153,11 @@ def test_profile_helpers_group_kernels_and_merge_busy_intervals():
 
     assert _busy_us([(0.0, 10.0), (5.0, 12.0), (20.0, 25.0)]) == 17.0
     assert _busy_us([]) == 0.0
-    assert _group("void (anonymous namespace)::lab_ctx_kernel<float>(float const*)") \
+    assert _group("void (anonymous namespace)::lab_fwd_chunk_kernel<float, false>(float const*)") \
         == "K1 linear attention"
     assert _group("void (anonymous namespace)::gn_apply_kernel<float>(float const*)") \
         == "K2 group norm"
-    assert _group("(anonymous namespace)::gemm_atb_kernel(float const*)") \
+    assert _group("void (anonymous namespace)::lab_bwd_reduce_kernel<true>(float const*)") \
         == "K1 linear attention bwd"
     assert _group("(anonymous namespace)::gn_bwd_apply_kernel(float const*)") \
         == "K2 group norm bwd"

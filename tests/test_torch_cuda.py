@@ -75,10 +75,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
-def test_linear_attention_kernel_matches_plain(cuda, n, c):
-    args = [_t(a, cuda) for a in _lab_inputs(4, n, c)]
+def _check_lab_forward(cuda, n, c, b=4):
+    args = [_t(a, cuda) for a in _lab_inputs(b, n, c)]
     before = linear_attention_block.launches
     got = linear_attention_block(*args)
     torch.cuda.synchronize()
@@ -88,16 +86,28 @@ def test_linear_attention_kernel_matches_plain(cuda, n, c):
     assert (ref - args[0] - args[4]).abs().max().item() >= 1.0
     # fp32 on both sides, different summation order
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    return args
 
 
-# one-line breaks of csrc/linear_attention.cu (text replaced -> replacement),
-# each of which the comparison above must catch
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32), (33, 64)])
+def test_linear_attention_kernel_matches_plain(cuda, n, c):
+    _check_lab_forward(cuda, n, c)
+
+
+# one-line breaks of K1's forward (file, text replaced, replacement), each
+# of which the comparison above must catch
 K1_MUTANTS = {
-    "attention dropped": ("from_f32<T>(acc + b_out[c]", "from_f32<T>(0.f * acc + b_out[c]"),
-    "k softmax uniform": ("const float e = expf(ks[r * kDh + tid] - mx);",
-                          "const float e = 1.f;"),
-    "context transposed": ("fmaf(ctx_s[d * kDh + e],", "fmaf(ctx_s[e * kDh + d],"),
-    "q softmax unnormalised": ("= e / pidm::warp_sum(e);", "= e;"),
+    "attention dropped": ("linear_attention.cu", "block ? acc + bo[k]", "block ? 0.f * acc + bo[k]"),
+    "k softmax uniform": ("linear_attention.cu",
+                          "const float e = t < rows ? expf(kv[t * kLdKV + tid] - mx) : 0.f;",
+                          "const float e = t < rows ? 1.f : 0.f;"),
+    "context transposed": ("linear_attention.cu", "fmaf(ctx_s[dd][e],", "fmaf(ctx_s[e][dd],"),
+    "q softmax unnormalised": ("la_tile.cuh", "v[i][j] = v[i][j] / s;", "v[i][j] = v[i][j];"),
+    # the merge of a row's token ranges: an earlier range's context not
+    # rescaled to the new running max
+    "merge drops the rescale of an earlier range": (
+        "linear_attention.cu", "c4[k] = c4[k] * a + p[", "c4[k] = c4[k] + p["),
 }
 
 
@@ -129,7 +139,7 @@ def _patched_kernels(monkeypatch, tmp_path, filename, old, new):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mutant", sorted(K1_MUTANTS))
 def test_linear_attention_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
-    with _patched_kernels(monkeypatch, tmp_path, "linear_attention.cu", *K1_MUTANTS[mutant]):
+    with _patched_kernels(monkeypatch, tmp_path, *K1_MUTANTS[mutant]):
         args = [_t(a, cuda) for a in _lab_inputs(4, 4096, 32)]
         got = linear_attention_block(*args)
         with pytest.raises(AssertionError):
@@ -226,8 +236,15 @@ def test_group_norm_backward_matches_plain(cuda, n, c, film):
 # comparison above must catch: file -> {name: (text replaced, replacement)}
 BWD_MUTANTS = {
     "linear_attention_bwd.cu": {
-        "row term dropped": ("kp[r] * (dkp - rj)", "kp[r] * dkp"),
-        "dctx transposed": ("dch[lane * kDhP + e]", "dch[e * kDhP + lane]"),
+        "row term dropped": ("kp * (dk[i][j] - rowv[jd])", "kp * dk[i][j]"),
+        # dK' = vn dctx (not dctx^T)
+        "dctx transposed": ("warp_gemm<kTc, false, false, kSplitB>(dk,",
+                            "warp_gemm<kTc, false, true, kSplitB>(dk,"),
+        # the ordered reduce of dW_qkv's partials starts at the second block
+        "dW_qkv reduce skips a block's partial": (
+            "src = dw_part + i, dst = dw_qkv + (long long)c * kQKV + j, stride = e_w, n = n_blk;",
+            "src = dw_part + e_w + i, dst = dw_qkv + (long long)c * kQKV + j, stride = e_w, "
+            "n = n_blk - 1;"),
     },
     "group_norm_bwd.cu": {
         "t2 dropped": ("(t1[g] + xhat * t2[g])", "(t1[g])"),
@@ -355,14 +372,13 @@ def test_k1_equals_x_plus_bias_plus_k3_of_layer_norm(cuda, n, c):
 # name -> (file, text replaced, replacement, the check that must fail)
 K3_MUTANTS = {
     "K3 adds the residual": (
-        "linear_attention.cu", "out[base + i] = from_f32<T>(acc);",
-        "out[base + i] = from_f32<T>(acc + to_f32(x[base + i]));", "forward"),
-    # K3 has no gamma: the first row of W_out stands in for it
+        "linear_attention.cu", "(block ? acc + bo[k] + xv[k] : acc);",
+        "(acc + to_f32(x[((long long)b * N + n0 + t) * C + c0 + c]));", "forward"),
+    # K3 normalises its tokens (without a gamma)
     "K3 applies the LN": (
-        "linear_attention.cu", "    if (block) ln_rows(xs, rows, C, gamma, eps);",
-        "    ln_rows(xs, rows, C, block ? gamma : w_out, eps);", "composition"),
+        "la_tile.cuh", "    if (block && t < rows) {", "    if (t < rows) {", "composition"),
     "K3 backward drops the row term": (
-        "linear_attention_bwd.cu", "kp[r] * (dkp - rj)", "kp[r] * dkp", "backward"),
+        "linear_attention_bwd.cu", "kp * (dk[i][j] - rowv[jd])", "kp * dk[i][j]", "backward"),
 }
 
 
@@ -378,6 +394,67 @@ def test_k3_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
                 _check_composition(cuda, 1024, 32)
             else:
                 _check_la_backward(cuda, 1024, 32)
+
+
+# K1 at the mechanics study's (N, C): UNet(dim=128) runs the attention
+# block at C = 128 to 1024, where the kernels tile C through shared memory
+MECHANICS_SHAPES = [(4096, 128), (1024, 256), (256, 512), (64, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", MECHANICS_SHAPES)
+def test_linear_attention_kernels_at_the_mechanics_shapes(cuda, n, c):
+    args = _check_lab_forward(cuda, n, c, b=6)
+    got_bf16 = linear_attention_block(args[0].bfloat16(), *args[1:])
+    assert got_bf16.dtype == torch.bfloat16
+    # bf16: the output's rounding
+    torch.testing.assert_close(got_bf16, linear_attention_block_plain(args[0].bfloat16(),
+                                                                      *args[1:]),
+                               atol=1e-2, rtol=1e-2)
+    del args, got_bf16
+    _check_lab_backward(cuda, n, c, b=6)
+    _check_bf16_lab_backward(cuda, n, c, b=6)
+
+
+# C not a multiple of the kernels' 32-channel slices: a partial last slice,
+# and rows of M that are not 16-byte aligned (C = 20)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(100, 48), (33, 20)])
+def test_linear_attention_kernels_at_a_ragged_channel_count(cuda, n, c):
+    _check_lab_forward(cuda, n, c)
+    _check_lab_backward(cuda, n, c)
+    _check_bf16_lab_backward(cuda, n, c)
+    _check_la_backward(cuda, n, c)
+
+
+@pytest.mark.cuda
+def test_fp32_k1_kernels_run_no_tensor_core_instruction(cuda):
+    """K1's and K3's kernels multiply fp32 x in full fp32 (the sampling path
+    is held to 1e-4): none of their fp32 instantiations holds a tensor-core
+    instruction (HMMA) in the built library; the bf16 ones with a product
+    do (bf16 mma.sync)."""
+    import re
+    import shutil
+    import subprocess
+
+    from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build()[0])], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            hmma[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            hmma[name] += 1
+    k1 = {n: count for n, count in hmma.items() if "lab_" in n}
+    fp32 = [count for n, count in k1.items() if "nv_bfloat16" not in n]
+    bf16 = [count for n, count in k1.items() if "nv_bfloat16" in n]
+    assert len(fp32) >= 7 and len(bf16) == 5, sorted(k1)
+    assert not any(fp32) and all(bf16), k1
 
 
 # bf16 input to the backward kernels (K1, K2, K3), and K5
@@ -448,10 +525,18 @@ def test_bf16_backward_kernels_match_autograd(cuda, n, c):
 # one break of each kernel's bf16 path, which its check must catch:
 # name -> (file, text replaced, replacement)
 BF16_MUTANTS = {
-    # K1/K3: dy read through the fp32 loader in dM = P^T dy
+    # K1/K3: dy read as fp32 in dP = dy M^T
     "K1/K3 bwd read bf16 dy as fp32": (
-        "linear_attention_bwd.cu", "to_f32(Bm[(long long)k * ldb + j0 + ii])",
-        "reinterpret_cast<const float*>(Bm)[(long long)k * ldb + j0 + ii]"),
+        "linear_attention_bwd.cu",
+        "stage<kT, kKC>(dys, kLdX, dyb + (long long)n0 * C + c0, C, rows, C - c0);",
+        "stage<kT, kKC>(dys, kLdX, reinterpret_cast<const float*>(dyb) + (long long)n0 * C + c0, "
+        "C, rows, C - c0);"),
+    # K1's bf16 forward rounds exp(k - m) against the running max of its
+    # tiles, not the row's max (lab_fwd_kmax unused): the context it saves
+    # drifts from the plain version's, and the gradients with it
+    "K1 bf16 fwd rounds against running maxima": (
+        "linear_attention.cu", "  if constexpr (kTc)  // bf16: the row's max (launch 0)",
+        "  if constexpr (false)  // bf16: the row's max (launch 0)"),
     "K2 bwd read bf16 dy as fp32": (
         "group_norm_bwd.cu", "const float dz = to_f32(dy[i]) * silu_grad(z);",
         "const float dz = reinterpret_cast<const float*>(dy)[i] * silu_grad(z);"),
@@ -466,6 +551,7 @@ def test_bf16_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
     filename, old, new = BF16_MUTANTS[mutant]
     checks = {"linear_attention_bwd.cu": [lambda: _check_bf16_lab_backward(cuda, 1024, 32),
                                           lambda: _check_bf16_la_backward(cuda, 1024, 32)],
+              "linear_attention.cu": [lambda: _check_bf16_lab_backward(cuda, 1024, 64)],
               "group_norm_bwd.cu": [lambda: _check_bf16_gn_backward(cuda, 1024, 32, True)],
               "group_norm_packed.cu": [lambda: _check_k5(cuda, 1024, 32)]}[filename]
     with _patched_kernels(monkeypatch, tmp_path, filename, old, new):
