@@ -13,7 +13,10 @@ the script exits non-zero:
      (device time: the calls are replayed from a CUDA graph), in fp32 and
      on bf16 x; then, untimed, fp32 and bf16 at the mechanics study's
      (N, C) at B=6 (MECHANICS_CALLS, C = 128 to 1024).
-  4. K2, GroupNorm-FiLM-SiLU, the same way, with and without FiLM.
+  4. K2, GroupNorm-FiLM-SiLU, the same way, with and without FiLM, after
+     a line per distinct (N, C) with K2's launch plan (blocks a row, shared
+     memory a block, resident or re-read); timed on bf16 x too, and checked
+     untimed at MECHANICS_CALLS, B=6, fp32 and bf16.
   5. one fp32 UNet forward (B=8) of the committed 300k Darcy checkpoint on
      the card (kernels) against the same forward on the CPU (plain
      versions).
@@ -28,7 +31,8 @@ the script exits non-zero:
      then, untimed, fp32 and bf16 at MECHANICS_CALLS at B=6 (bf16 within
      BF16_DX_TOL and BF16_PARAM_TOL); and the backward's workspace at B=64,
      N=4096, C=32, at most K1_BWD_WORKSPACE_MAX.
-  8. K2's backward kernel the same way, with and without FiLM.
+  8. K2's backward kernels the same way, with and without FiLM, and
+     untimed at MECHANICS_CALLS, B=6, fp32 and bf16.
   9. the training path: (a) a Darcy set from the port's generator (256
      train, 64 valid); (b) one train step at B=8 from the 300k EMA weights,
      card (kernels) against CPU (plain versions); (c) the loss of the 300k
@@ -106,8 +110,9 @@ Phases 9 to 15 share one temporary directory with phase 9's data.
      bf16 x); steps/s beside 9d's and 13c's.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
-forward and backward on bf16 x, on the stage run of phase 10 for K3, on
-``profile_gn`` for K5, on 15e, and 15f for ``bf16_launches``, for K4), error
+forward and backward on bf16 x (K2's: 36 of a step's 38), on the stage run
+of phase 10 for K3, on ``profile_gn`` for K5, on 15e, and 15f for
+``bf16_launches``, for K4), error
 and times (K4's also the default Block's and bf16 ones), the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
@@ -279,10 +284,11 @@ def k1_work(b: int, n: int, c: int, h: int = 256, dh: int = 32,
     return nbytes, flops
 
 
-def k2_work(b: int, n: int, c: int, film: bool) -> tuple[float, float]:
-    """Bytes (x read, out written, params read once) and ~10 flops an element
-    (shifted sums 3, normalise and FiLM 2, SiLU 5)."""
-    nbytes = 4 * (2 * b * n * c + 2 * c + (2 * b * c if film else 0))
+def k2_work(b: int, n: int, c: int, film: bool, elt: int = 4) -> tuple[float, float]:
+    """Bytes (x read and out written, ``elt`` bytes each; params read once,
+    fp32) and ~10 flops an element (the two sums 3, normalise and FiLM 2,
+    SiLU 5)."""
+    nbytes = elt * 2 * b * n * c + 4 * (2 * c + (2 * b * c if film else 0))
     return nbytes, 10.0 * b * n * c
 
 
@@ -501,10 +507,10 @@ def check_bf16_forward(name, kernel, plain, make_args, path_calls, work) -> dict
             "bound_by": bound_ms(nbytes, flops, PEAK_BF16_FLOPS)[1], "library_ms": None}
 
 
-def check_mechanics(name, kernel, plain, make_args, backward: bool) -> None:
-    """Hold K1 (its forward, or its backward through autograd) against its
-    plain version at MECHANICS_CALLS, B=6, fp32 and bf16, untimed, with the
-    tolerances of the path's shapes."""
+def check_mechanics(name, kernel, plain, make_args, backward: bool, part=None) -> None:
+    """Hold K1 or K2 (its forward, or its backward through autograd) against
+    its plain version at MECHANICS_CALLS, B=6, fp32 and bf16, untimed, with
+    the tolerances of the path's shapes; ``part`` as in check_kernel."""
     import torch
 
     for call in MECHANICS_CALLS:
@@ -515,8 +521,8 @@ def check_mechanics(name, kernel, plain, make_args, backward: bool) -> None:
             what = f"{name} B=6 {call} {'bf16' if bf16 else 'fp32'}"
             if not backward:
                 ref = plain(*args)
-                if not bf16:
-                    k1_term(args, ref)
+                if not bf16 and part is not None:
+                    part(args, ref)
                 err = compare(kernel(*args), ref, TOL["bf16" if bf16 else "fp32"], what)
                 print(f"  {what}: max |diff| {err:.3e}", flush=True)
                 continue
@@ -532,6 +538,24 @@ def check_mechanics(name, kernel, plain, make_args, backward: bool) -> None:
             print(f"  {what}: max |diff| / max |g| {worst:.2e}", flush=True)
             del dy
         del args
+
+
+def print_k2_plans() -> None:
+    """K2's launch plan (ops/group_norm.py ``k2_plan``, as the card steps it
+    down) at each distinct (N, C) of the path at B=64 and of the mechanics
+    study at B=6: blocks a row (k), bytes of shared memory a block, and
+    whether a block's slice is resident or partly re-read."""
+    from physicsinformeddiffusionmodels_tpu_torch.ops import group_norm as gn
+
+    for b, shapes in ((64, dict.fromkeys((n, c) for n, c, _ in K2_CALLS)), (6, MECHANICS_CALLS)):
+        for n, c in shapes:
+            plans = {f"{'bwd' if backward else 'fwd'} {'bf16' if bf16 else 'fp32'}":
+                     gn._plan(b, n, c, 8, bf16, True, backward)
+                     for backward in (False, True) for bf16 in (False, True)}
+            print(f"  K2 plan B={b} ({n}, {c}): " + json.dumps(
+                {k: {"k": p.k, "tokens": p.tokens, "smem_bytes": p.smem,
+                     "mode": "re-read" if p.reread else "resident"} for k, p in plans.items()}),
+                  flush=True)
 
 
 def _counted() -> tuple:
@@ -844,10 +868,10 @@ def bf16_step_phase(ds, dev) -> None:
          worst_tensor_share_of_limit=f"{worst:.2f}", launches=launched)
 
 
-def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, float]:
+def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int, float]:
     """Phase 13 on phase 9's data in ``tmp``. Returns the launch counts of
-    the 200-step bf16 run (K1's forward on bf16 x, K1's and K2's backward on
-    bf16 x) and its steps/s."""
+    the 200-step bf16 run (K1's forward, K1's backward, K2's forward and
+    K2's backward, each on bf16 x) and its steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -903,7 +927,7 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, float]:
         raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
          sampling_seconds=f"{summary['seconds']:.2f}")
-    return got[0][1], got[0][3], got[1][3], steps_per_s
+    return got[0][1], got[0][3], got[1][1], got[1][3], steps_per_s
 
 
 def k5_phase(dev, randn) -> dict:
@@ -1340,14 +1364,20 @@ def main() -> int:
     k1f16 = check_bf16_forward("linear_attention_block_bf16", linear_attention_block,
                                linear_attention_block_plain, k1_args, K1_CALLS, k1_work)
     check_mechanics("linear_attention_block", linear_attention_block,
-                    linear_attention_block_plain, k1_args, backward=False)
+                    linear_attention_block_plain, k1_args, backward=False, part=k1_term)
     done(ph, max_abs_err=f"{k1['max_abs_err']:.3e}",
          bf16_max_abs_err=f"{k1f16['max_abs_err']:.3e}")
 
     ph = phase("4 K2 GroupNorm-FiLM-SiLU")
+    print_k2_plans()
     k2 = check_kernel("group_norm_film_silu", group_norm_film_silu,
                       group_norm_film_silu_plain, k2_args, k2_shapes, K2_CALLS, k2_work)
-    done(ph, max_abs_err=f"{k2['max_abs_err']:.3e}")
+    k2f16 = check_bf16_forward("group_norm_film_silu_bf16", group_norm_film_silu,
+                               group_norm_film_silu_plain, k2_args, K2_CALLS, k2_work)
+    check_mechanics("group_norm_film_silu", group_norm_film_silu, group_norm_film_silu_plain,
+                    k2_args, backward=False)
+    done(ph, max_abs_err=f"{k2['max_abs_err']:.3e}",
+         bf16_max_abs_err=f"{k2f16['max_abs_err']:.3e}")
 
     ph = phase("5 checkpoint forward")
     _, model, step = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
@@ -1402,6 +1432,8 @@ def main() -> int:
         "group_norm_film_silu_backward", group_norm_film_silu, group_norm_film_silu_plain,
         lambda *a: (*a, gn.launch_forward(*a)[1]), gn.launch_backward, k2_args, k2_shapes,
         K2_CALLS, k2_bwd_work)
+    check_mechanics("group_norm_film_silu_backward", group_norm_film_silu,
+                    group_norm_film_silu_plain, k2_args, backward=True)
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
     steps_per_s = {}
@@ -1441,7 +1473,7 @@ def main() -> int:
              k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
              k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
 
-        (k1f16["launches"], k1b16["launches"], k2b16["launches"],
+        (k1f16["launches"], k1b16["launches"], k2f16["launches"], k2b16["launches"],
          steps_per_s["13c"]) = bf16_train_phase(Path(tmp), dev, smi)
 
         ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
@@ -1466,6 +1498,8 @@ def main() -> int:
         (k1f16, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:468"),
         (k2, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm.cu",
+         "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:78"),
+        (k2f16, "physicsinformeddiffusionmodels_tpu_torch/csrc/group_norm.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_kernels.py:78"),
         (k1b, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention_bwd.cu",
          "physicsinformeddiffusionmodels_tpu/ops/pallas_attention.py:530"),
@@ -1493,8 +1527,8 @@ def main() -> int:
     # their bf16 + fp32-head figures (bf16_*)
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **{k: v for k, v in e.items() if k not in keys}}
-                                  for e in (k1, k1f16, k2, k1b, k2b, k3, k3b, k1b16, k2b16, k5,
-                                            k4, k4b)]}))
+                                  for e in (k1, k1f16, k2, k2f16, k1b, k2b, k3, k3b, k1b16,
+                                            k2b16, k5, k4, k4b)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

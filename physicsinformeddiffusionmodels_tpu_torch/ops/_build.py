@@ -36,13 +36,15 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C signatures of csrc/*.cu: every pointer and the stream as void*, ints as
 # int; (argument types, return type)
 _SIGNATURES = {
-    # x, out, gamma, beta, scale, shift, partials, B, N, C, G, S, eps, bf16, stream
-    "pidm_gn_film_silu": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
-    # x, dy, gamma, beta, scale, shift, fwd partials, dx, dgamma, dbeta, dscale,
-    # dshift, work, B, N, C, G, S, eps, bf16, stream
-    "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 5 + [_F, _I, _P], _I),
-    # B, N, C -> floats of workspace
-    "pidm_gn_film_silu_bwd_workspace": ([_I] * 3, _L),
+    # x, out, gamma, beta, scale, shift, stats, B, N, C, G, k, tokens, resident,
+    # smem, vec, eps, bf16, stream
+    "pidm_gn_film_silu": ([_P] * 7 + [_I] * 9 + [_F, _I, _P], _I),
+    # x, dy, gamma, beta, scale, shift, stats, dx, dgamma, dbeta, dscale, dshift,
+    # sums, B, N, C, G, k, tokens, resident, smem, vec, bf16, stream
+    "pidm_gn_film_silu_bwd": ([_P] * 13 + [_I] * 10 + [_P], _I),
+    # k, smem, vec, bf16 -> clusters the card holds at once (K2 fwd, bwd)
+    "pidm_gn_film_silu_max_clusters": ([_I] * 4, _I),
+    "pidm_gn_film_silu_bwd_max_clusters": ([_I] * 4, _I),
     # x, out, gamma, w_qkv, w_out, b_out, M, stats, work, B, N, C, eps, bf16, stream
     "pidm_linear_attention_block": ([_P] * 9 + [_I] * 3 + [_F, _I, _P], _I),
     # B, N, C -> floats of scratch (K1's and K3's forward)

@@ -7,11 +7,12 @@ uses the plain PyTorch version, under plain autograd, for a CPU tensor.
 Nothing else chooses between them: a CUDA tensor the kernels do not take
 raises. On CUDA, when grad is enabled and an input requires it, the call
 goes through an ``autograd.Function`` whose forward launches
-``csrc/group_norm.cu`` and whose backward launches
-``csrc/group_norm_bwd.cu``, for fp32 and bf16 x alike.
+``csrc/group_norm.cu`` (one launch) and whose backward launches
+``csrc/group_norm_bwd.cu`` (two), for fp32 and bf16 x alike.
 ``group_norm_film_silu.launches`` and ``.backward_launches`` count the calls
 that launched each, ``.bf16_launches`` and ``.bf16_backward_launches`` those
-of them on bf16 x.
+of them on bf16 x. Both kernels hold a batch row in one thread-block
+cluster; ``k2_plan`` sizes it.
 
 ``group_norm_film_silu_packed`` (K5, ``csrc/group_norm_packed.cu``) computes
 the same function on bf16 x with the affine and FiLM folded into one scale
@@ -22,13 +23,124 @@ counted in ``group_norm_film_silu_packed.launches``.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from physicsinformeddiffusionmodels_tpu_torch.ops import _build
 
-_STATS_CHUNK = 4096  # group elements per block of the statistics pass
+# K2's launch plan on the H100 (csrc/gn_cluster.cuh): one cluster of k
+# blocks a batch row, each block a slice of the row's tokens in shared memory.
+# The constants are those that measured fastest at the Darcy UNet's calls at
+# B=64 (profile_k2.py): more blocks a row than the card holds at once cost a
+# second wave of clusters, which a re-read from L2 costs less than.
+K2_THREADS = 256
+K2_SMEM_MAX = 232448  # 227 KB, the most shared memory a block may use
+# bytes of x (and dy) a block holds at most: with its scratch, two blocks an
+# SM; the backward on bf16 x (~80 registers a thread) half that, so that
+# three fit an SM, with at most K2_BF16_BWD_CLUSTER blocks a row
+K2_RESIDENT_MAX, K2_BF16_BWD_RESIDENT_MAX, K2_BF16_BWD_CLUSTER = 96 * 1024, 48 * 1024, 4
+# a slice is not cut below this to cover the card: a smaller one pays more
+# in its cluster barrier than it gains in parallel loads
+K2_SLICE_MIN = 8 * 1024
+K2_COVER = 128  # blocks a call should reach, about one for each of the H100's 132 SMs
+K2_CLUSTER_PORTABLE, K2_CLUSTER_MAX = 8, 16
+
+
+class K2Plan(NamedTuple):
+    """How K2 lays a call out: ``k`` blocks a batch row (one cluster, B k in
+    all); block q takes tokens [q ``tokens``, min(N, (q + 1) ``tokens``)),
+    the first ``resident`` of them staged in ``smem`` bytes of shared memory
+    (with its scratch), the rest re-read from global memory (L2) in each
+    pass."""
+
+    k: int
+    tokens: int
+    resident: int
+    smem: int
+
+    @property
+    def reread(self) -> bool:
+        return self.resident < self.tokens
+
+
+def _aux_bytes(c: int, groups: int, elt: int, backward: bool) -> int:
+    """Shared memory of a block besides its slices (csrc/gn_cluster.cuh
+    ``aux_bytes``): per-(row lane, channel) scratch, channel and group
+    partials."""
+    rc = max(K2_THREADS * (16 // elt), c)
+    return 4 * (2 * rc + 4 * c + 2 * groups if backward else rc + c + 4 * groups)
+
+
+def _slice_bytes(tokens: int, c: int, elt: int) -> int:
+    return -(-tokens * c * elt // 16) * 16
+
+
+def k2_plan(b: int, n: int, c: int, elt: int, backward: bool = False, groups: int = 8,
+            cluster_max: int = K2_CLUSTER_MAX) -> K2Plan:
+    """The launch plan of K2's forward (or its backward, which holds x and
+    dy) on a [b, n, c] x of ``elt`` bytes an element.
+
+    k, a power of two, first grows until a block's slice fits its resident
+    bytes (up to ``cluster_max``); then, up to the portable 8, while b k
+    blocks do not reach K2_COVER and the halved slice stays at least
+    K2_SLICE_MIN. What still does not fit is re-read."""
+    if backward and elt == 2:
+        cluster_max = min(cluster_max, K2_BF16_BWD_CLUSTER)
+    fit = _fit(c, elt, backward, groups)
+    tok_bytes = c * elt * (2 if backward else 1)
+    k = 1
+    while k < cluster_max and 2 * k <= n and -(-n // k) > fit:
+        k *= 2
+    while (k < min(K2_CLUSTER_PORTABLE, cluster_max) and 2 * k <= n and b * k < K2_COVER
+           and -(-n // (2 * k)) * tok_bytes >= K2_SLICE_MIN):
+        k *= 2
+    return k2_plan_of(k, n, c, elt, backward, groups)
+
+
+def _fit(c: int, elt: int, backward: bool, groups: int) -> int:
+    """Tokens a block holds at most (x, and dy in the backward)."""
+    resident_max = K2_BF16_BWD_RESIDENT_MAX if backward and elt == 2 else K2_RESIDENT_MAX
+    aux = _aux_bytes(c, groups, elt, backward)
+    return max(1, min(resident_max, K2_SMEM_MAX - aux) // (c * elt * (2 if backward else 1)))
+
+
+def k2_plan_of(k: int, n: int, c: int, elt: int, backward: bool = False,
+               groups: int = 8) -> K2Plan:
+    """The plan with k blocks a row: each holds what fits of its slice."""
+    tokens = -(-n // k)
+    resident = min(tokens, _fit(c, elt, backward, groups))
+    streams = 2 if backward else 1
+    return K2Plan(k, tokens, resident,
+                  streams * _slice_bytes(resident, c, elt) + _aux_bytes(c, groups, elt, backward))
+
+
+def max_clusters(plan: K2Plan, bf16: bool, vec: bool, backward: bool) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: it cannot schedule the plan)."""
+    lib = _build.library()
+    fits = (lib.pidm_gn_film_silu_bwd_max_clusters if backward
+            else lib.pidm_gn_film_silu_max_clusters)(plan.k, plan.smem, int(vec), int(bf16))
+    if fits < 0:
+        _build.check(-fits, "group_norm_film_silu: cudaOccupancyMaxActiveClusters")
+    return fits
+
+
+@functools.cache
+def _plan(b: int, n: int, c: int, groups: int, bf16: bool, vec: bool,
+          backward: bool) -> K2Plan:
+    """``k2_plan`` for the card: a non-portable cluster (k > 8) that the
+    card cannot schedule steps down to 8."""
+    plan = k2_plan(b, n, c, 2 if bf16 else 4, backward, groups)
+    if plan.k > K2_CLUSTER_PORTABLE and max_clusters(plan, bf16, vec, backward) == 0:
+        plan = k2_plan(b, n, c, 2 if bf16 else 4, backward, groups, K2_CLUSTER_PORTABLE)
+    return plan
+
+
+def _vec(c: int, elt: int, *tensors: torch.Tensor) -> bool:
+    """Whether 16-byte vectors can read every row of these [B, N, C] tensors."""
+    return c % (16 // elt) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def group_norm_film_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -72,63 +184,71 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def launch_forward(x, gamma, beta, scale, shift, groups: int = 8, eps: float = 1e-5):
-    """Launch the forward kernel on checked CUDA tensors. Returns (out, the
-    statistics partials [B, G, S, 2])."""
+def launch_forward(x, gamma, beta, scale, shift, groups: int = 8, eps: float = 1e-5,
+                   plan: Optional[K2Plan] = None):
+    """Launch the forward kernel on checked CUDA tensors (with ``plan``, or
+    the card's plan for the shape). Returns (out, the statistics [B, G, 2]:
+    each row's mean and rstd per group)."""
     b, c = x.shape[0], x.shape[-1]
     n = x.numel() // max(b * c, 1)
-    s = max(1, min(64, -(-n * (c // groups) // _STATS_CHUNK)))
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
-    partials = torch.empty((b, groups, s, 2), dtype=torch.float32, device=x.device)
+    vec = _vec(c, x.element_size(), x, out)
+    plan = plan or _plan(b, n, c, groups, bf16, vec, False)
+    stats = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
     rc = _build.library().pidm_gn_film_silu(
         x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
-        _ptr(shift), partials.data_ptr(), b, n, c, groups, s, eps,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(shift), stats.data_ptr(), b, n, c, groups, plan.k, plan.tokens, plan.resident,
+        plan.smem, int(vec), eps, int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "group_norm_film_silu")
     group_norm_film_silu.launches += 1
-    group_norm_film_silu.bf16_launches += int(x.dtype == torch.bfloat16)
-    return out, partials
+    group_norm_film_silu.bf16_launches += int(bf16)
+    return out, stats
 
 
-def launch_backward(dy, x, gamma, beta, scale, shift, partials, groups: int = 8,
-                    eps: float = 1e-5):
-    """Launch the backward kernel with the forward's partials; dy and dx in
-    x's dtype (fp32 or bf16). Returns (dx, dgamma, dbeta, dscale, dshift),
-    the parameter gradients fp32; the last two are None without FiLM."""
+def launch_backward(dy, x, gamma, beta, scale, shift, stats, groups: int = 8,
+                    eps: float = 1e-5, plan: Optional[K2Plan] = None):
+    """Launch the backward kernels with the forward's statistics (and
+    ``plan``, as in launch_forward); dy and dx in x's dtype (fp32 or bf16).
+    Returns (dx, dgamma, dbeta, dscale, dshift), the parameter gradients
+    fp32; the last two are None without FiLM. ``eps`` is in the saved rstd
+    already."""
     dy = dy.contiguous()
     b, c = x.shape[0], x.shape[-1]
     n = x.numel() // (b * c)
-    lib = _build.library()
-    work = torch.empty(lib.pidm_gn_film_silu_bwd_workspace(b, n, c), dtype=torch.float32,
-                       device=x.device)
+    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
+    vec = _vec(c, x.element_size(), x, dy, dx)
+    plan = plan or _plan(b, n, c, groups, bf16, vec, True)
+    sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
     film = scale is not None
     dscale = torch.empty_like(scale) if film else None
     dshift = torch.empty_like(shift) if film else None
-    rc = lib.pidm_gn_film_silu_bwd(
+    rc = _build.library().pidm_gn_film_silu_bwd(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
-        _ptr(shift), partials.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        _ptr(dscale), _ptr(dshift), work.data_ptr(), b, n, c, groups, partials.shape[2], eps,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(shift), stats.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        _ptr(dscale), _ptr(dshift), sums.data_ptr(), b, n, c, groups, plan.k, plan.tokens,
+        plan.resident, plan.smem, int(vec), int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "group_norm_film_silu backward")
     group_norm_film_silu.backward_launches += 1
-    group_norm_film_silu.bf16_backward_launches += int(x.dtype == torch.bfloat16)
+    group_norm_film_silu.bf16_backward_launches += int(bf16)
     return dx, dgamma, dbeta, dscale, dshift
 
 
 class _GroupNormFilmSilu(torch.autograd.Function):
     """The CUDA forward and backward kernels as one autograd node (fp32 or
     bf16 x, fp32 parameters).
-    The forward's statistics partials are saved, so the backward folds the
-    same mean and rstd."""
+    The forward's statistics are saved, so the backward reads the same mean
+    and rstd."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, scale, shift, groups, eps):
-        out, partials = launch_forward(x, gamma, beta, scale, shift, groups, eps)
-        ctx.save_for_backward(x, gamma, beta, scale, shift, partials)
+        out, stats = launch_forward(x, gamma, beta, scale, shift, groups, eps)
+        ctx.save_for_backward(x, gamma, beta, scale, shift, stats)
         ctx.groups, ctx.eps = groups, eps
         return out
 

@@ -29,7 +29,7 @@ GROUPS = (
     ("K1 linear attention bwd", ("lab_bwd",)),
     ("K2 group norm bwd", ("gn_bwd",)),
     ("K1 linear attention", ("lab_fwd",)),
-    ("K2 group norm", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("K2 group norm", ("gn_fwd_kernel",)),
     ("K4 conv block bwd", ("conv_bwd_dz_kernel", "conv_bwd_params_kernel", "conv_dw_kernel",
                            "conv_dw_reduce_kernel", "conv_dx_kernel")),
     ("K4 conv block", ("conv_fwd_kernel", "conv_stats_kernel", "conv_apply_kernel")),

@@ -155,11 +155,11 @@ def test_profile_helpers_group_kernels_and_merge_busy_intervals():
     assert _busy_us([]) == 0.0
     assert _group("void (anonymous namespace)::lab_fwd_chunk_kernel<float, false>(float const*)") \
         == "K1 linear attention"
-    assert _group("void (anonymous namespace)::gn_apply_kernel<float>(float const*)") \
+    assert _group("void (anonymous namespace)::gn_fwd_kernel<float, 4>(float const*)") \
         == "K2 group norm"
     assert _group("void (anonymous namespace)::lab_bwd_reduce_kernel<true>(float const*)") \
         == "K1 linear attention bwd"
-    assert _group("(anonymous namespace)::gn_bwd_apply_kernel(float const*)") \
+    assert _group("void (anonymous namespace)::gn_bwd_kernel<__nv_bfloat16, 8>(float const*)") \
         == "K2 group norm bwd"
     assert _group("sm80_xmma_fprop_implicit_gemm_f32f32") == "convolutions"
     assert _group("ampere_sgemm_128x64_nn") == "matmuls"

@@ -147,16 +147,73 @@ def test_linear_attention_comparison_fails_a_broken_kernel(cuda, monkeypatch, tm
                                        atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("film", [True, False])
-@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32)])
-def test_group_norm_kernel_matches_plain(cuda, n, c, film):
-    args = [_t(a, cuda) for a in _gn_inputs(4, n, c, film)]
+def _check_gn_forward(cuda, n, c, film, b=4):
+    args = [_t(a, cuda) for a in _gn_inputs(b, n, c, film)]
     before = group_norm_film_silu.launches
     got = group_norm_film_silu(*args)
     torch.cuda.synchronize()
     assert group_norm_film_silu.launches == before + 1
     torch.testing.assert_close(got, group_norm_film_silu_plain(*args), atol=1e-5, rtol=1e-5)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("n,c", PATH_SHAPES + [(100, 32)])
+def test_group_norm_kernel_matches_plain(cuda, n, c, film):
+    _check_gn_forward(cuda, n, c, film)
+
+
+# one-line breaks of K2's forward (file, text replaced, replacement), each
+# of which the comparison above must catch at B=4, (1024, 32), where a row
+# spans a cluster of 8 blocks (ops/group_norm.py k2_plan)
+K2_MUTANTS = {
+    "merge skips a rank's partial": (
+        "group_norm.cu", "for (int p = 0; p < k; ++p) {", "for (int p = 1; p < k; ++p) {"),
+    "rstd of the block's own slice, no merge": (
+        "group_norm.cu", "gstat[2 * g + 1] = rsqrtf(m2_a / n_a + eps);",
+        "gstat[2 * g + 1] = rsqrtf(gpart[2 * g + 1] / cnt + eps);"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", sorted(K2_MUTANTS))
+def test_group_norm_comparison_fails_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import k2_plan
+
+    assert k2_plan(4, 1024, 32, 4).k > 1
+    with _patched_kernels(monkeypatch, tmp_path, *K2_MUTANTS[mutant]):
+        with pytest.raises(AssertionError):
+            _check_gn_forward(cuda, 1024, 32, film=True)
+
+
+# K2 at more rows than the card holds clusters at once (several waves of
+# clusters): each call's output and gradients bit for bit those of the
+# first (fixed-order sums, no atomics)
+REPEAT_SHAPE, REPEATS = (256, 4096, 32), 20
+
+
+def _check_gn_repeats(device):
+    b, n, c = REPEAT_SHAPE
+    args = [_t(a, device) for a in _gn_inputs(b, n, c, True)]
+    leaves = [a.requires_grad_(True) for a in args]
+    dy = torch.randn(b, n, c, generator=torch.Generator().manual_seed(5)).to(device)
+    first = None
+    for i in range(REPEATS):
+        out = group_norm_film_silu(*leaves)
+        got = [out.detach(), *torch.autograd.grad(out, leaves, dy)]
+        if first is None:
+            first = got
+            torch.testing.assert_close(
+                got[0], group_norm_film_silu_plain(*[a.detach() for a in args]),
+                atol=1e-5, rtol=1e-5)
+        for name, g, f in zip(("out", "dx", "dgamma", "dbeta", "dscale", "dshift"), got, first):
+            assert torch.equal(g, f), f"call {i}: {name} differs from the first call's"
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_repeat_bit_for_bit(cuda):
+    _check_gn_repeats(cuda)
 
 
 @pytest.mark.cuda
@@ -247,8 +304,14 @@ BWD_MUTANTS = {
             "n = n_blk - 1;"),
     },
     "group_norm_bwd.cu": {
-        "t2 dropped": ("(t1[g] + xhat * t2[g])", "(t1[g])"),
+        "t2 dropped": ("(t1[v] + xhat * t2[v])", "(t1[v])"),
         "SiLU derivative dropped": ("return sig * (1.f + z * (1.f - sig));", "return 1.f;"),
+        # the row's S0, S1 summed from the second block of its cluster on
+        "S0/S1 merge skips a rank": ("for (int p = 0; p < k; ++p) {",
+                                     "for (int p = 1; p < k; ++p) {"),
+        # dgamma and dbeta leave out the first batch row
+        "parameter pass skips a row": ("for (int b = r; b < B; b += kRowLanes) {",
+                                       "for (int b = r + (r == 0); b < B; b += kRowLanes) {"),
     },
 }
 
@@ -416,6 +479,53 @@ def test_linear_attention_kernels_at_the_mechanics_shapes(cuda, n, c):
     _check_bf16_lab_backward(cuda, n, c, b=6)
 
 
+# K2 at the same (N, C) and B=6: clusters of up to 16 blocks, and at
+# (4096, 128) in fp32 a row (2 MB) larger than its cluster's shared memory,
+# so each block re-reads part of its slice
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", MECHANICS_SHAPES)
+def test_group_norm_kernels_at_the_mechanics_shapes(cuda, n, c):
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import k2_plan
+
+    assert k2_plan(6, 4096, 128, 4).reread and k2_plan(6, 4096, 128, 4, backward=True).reread
+    args = _check_gn_forward(cuda, n, c, film=True, b=6)
+    got_bf16 = group_norm_film_silu(args[0].bfloat16(), *args[1:])
+    assert got_bf16.dtype == torch.bfloat16
+    # bf16: the output's rounding
+    torch.testing.assert_close(got_bf16, group_norm_film_silu_plain(args[0].bfloat16(), *args[1:]),
+                               atol=1e-2, rtol=1e-2)
+    del args, got_bf16
+    _check_gn_backward(cuda, n, c, film=True, b=6)
+    _check_bf16_gn_backward(cuda, n, c, True, b=6)
+
+
+# K2 where 16-byte vectors do not fit: C not a multiple of a vector's
+# elements (the scalar edge: C = 6, and C = 20 in bf16), and x at an address
+# that is not 16-byte aligned; N ragged, groups of 3 and 5 channels
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,groups,offset", [(33, 20, 4, 0), (100, 6, 2, 0), (77, 32, 8, 1)])
+def test_group_norm_kernels_without_16_byte_vectors(cuda, n, c, groups, offset):
+    x, gamma, beta, scale, shift = [_t(a, cuda) for a in _gn_inputs(3, n, c, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:].copy_(x.flatten())
+        xd = buf[offset:].view(x.shape).requires_grad_(True)
+        assert (xd.data_ptr() % 16 != 0) == bool(offset)
+        args = [xd] + [a.detach().clone().requires_grad_(True) for a in (gamma, beta, scale, shift)]
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(n)).to(cuda, dtype)
+        out = group_norm_film_silu(*args, groups=groups)
+        got = torch.autograd.grad(out, args, dy)
+        ref_out = group_norm_film_silu_plain(*args, groups=groups)
+        ref = torch.autograd.grad(ref_out, args, dy)
+        fp32 = dtype == torch.float32
+        tol = 1e-5 if fp32 else 1e-2
+        torch.testing.assert_close(out, ref_out, atol=tol, rtol=tol)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            t = GRAD_TOL if fp32 else (BF16_DX_TOL if i == 0 else BF16_PARAM_TOL)
+            scale_, err = r.float().abs().max().item(), (g.float() - r.float()).abs().max().item()
+            assert g.dtype == r.dtype and err <= t * scale_, (dtype, i, err, scale_)
+
+
 # C not a multiple of the kernels' 32-channel slices: a partial last slice,
 # and rows of M that are not 16-byte aligned (C = 20)
 @pytest.mark.cuda
@@ -538,8 +648,8 @@ BF16_MUTANTS = {
         "linear_attention.cu", "  if constexpr (kTc)  // bf16: the row's max (launch 0)",
         "  if constexpr (false)  // bf16: the row's max (launch 0)"),
     "K2 bwd read bf16 dy as fp32": (
-        "group_norm_bwd.cu", "const float dz = to_f32(dy[i]) * silu_grad(z);",
-        "const float dz = reinterpret_cast<const float*>(dy)[i] * silu_grad(z);"),
+        "group_norm_bwd.cu", "load_vec<T, V>(fd, sm ? dys + o : dyr + o);",
+        "load_vec<float, V>(fd, reinterpret_cast<const float*>(sm ? dys + o : dyr + o));"),
     "K5 variance without mean^2": (
         "group_norm_packed.cu", "rsqrtf(s2 / cnt - mean * mean + eps)", "rsqrtf(s2 / cnt + eps)"),
 }

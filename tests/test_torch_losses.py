@@ -270,10 +270,14 @@ def test_linear_attention_plain_gradients_match_pallas_interpret(n, c):
                                    atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("film", [True, False])
-def test_group_norm_plain_gradients_match_pallas_interpret(film):
+# the film flag alone names the (64, 32) cases; (64, 256) is a Darcy level's
+# width with 32 channels a group
+@pytest.mark.parametrize("film,n,c", [
+    pytest.param(True, 64, 32, id="True"), pytest.param(False, 64, 32, id="False"),
+    pytest.param(True, 64, 256, id="True-64-256"), pytest.param(False, 64, 256, id="False-64-256")])
+def test_group_norm_plain_gradients_match_pallas_interpret(film, n, c):
     rng = np.random.default_rng(8)
-    b, n, c = 3, 64, 32
+    b = 3
     x = (rng.standard_normal((b, n, c)) * 2.0 + 0.5).astype(np.float32)
     gamma = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
     beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
