@@ -38,7 +38,7 @@ the script exits non-zero:
      card (kernels) against CPU (plain versions); (c) the loss of the 300k
      EMA weights over 8 validation batches of 64, inside EMA_LOSS_BAND, its
      data part inside EMA_DATA_LOSS_BAND and its mean |residual| inside
-     EMA_RESIDUAL_BAND; (d) 200 steps at B=64, full width, fp32, fresh
+     EMA_RESIDUAL_BAND; (d) TRAIN_STEPS (100) steps at B=64, full width, fp32, fresh
      Adam, with the launch counts zeroed just before and read just after
      (K1 and K2 forward and backward once per UNet call: 8 and 38 per step,
      none on bf16 x), finite losses and a mean of the last 50 below
@@ -80,7 +80,7 @@ Phases 9 to 15 share one temporary directory with phase 9's data.
      (b) the loss of the 300k EMA weights in bf16 (8 validation batches of
      64), loss and mean |residual| within 0.5x-2x of the JAX package's bf16
      + fp32-head reference (EMA_BF16_LOSS_BAND, EMA_BF16_RESIDUAL_BAND);
-     (c) the main path: 200 steps at B=64 from those weights, fresh Adam,
+     (c) the main path: TRAIN_STEPS steps at B=64 from those weights, fresh Adam,
      with the launch counts zeroed just before and read just after (K1 8
      and K2 38 forward and backward per step, all on bf16 x but the fp32
      head's two K2 calls, forward and backward), finite losses, last-50
@@ -104,10 +104,31 @@ Phases 9 to 15 share one temporary directory with phase 9's data.
      forward at B=8, card vs CPU; (d) cm sampling, 64 samples x 100 steps,
      fp32, seed 0, launch counts K1 800, K2 2000, K4 1800, the residual
      median in the phase 6 range and within 10% of phase 6's; (e) one cm
-     train step card vs CPU (9b's rules), then 200 cm steps at B=64 as 9d,
-     K1 8/8, K2 20/20, K4 18/18 per step; (f) 200 cm steps in bf16 with the
+     train step card vs CPU (9b's rules), then TRAIN_STEPS cm steps at B=64 as 9d,
+     K1 8/8, K2 20/20, K4 18/18 per step; (f) TRAIN_STEPS cm steps in bf16 with the
      fp32 head as 13c, K1 8/8, K2 22/22 (20 on bf16 x), K4 16/16 (all on
      bf16 x); steps/s beside 9d's and 13c's.
+ 16. DDIM x0 sample-estimation, on ``results/darcy_sample_100k`` (ddim_steps
+     0: two UNet calls a loss): (a) its sampling, 64 fp32 samples, seed 0,
+     launches K1 800 and K2 3800, the residual median in DDIM_MEDIAN_RANGE
+     (0.5x-2x the run's fp32 CPU evaluation); (b) one DDIM train step at
+     B=16, card vs CPU (9b's rules); (c) its training main path, DDIM_STEPS
+     steps at B=16, fp32, K1 16/16 and K2 76/76 a step.
+ 17. residual-gradient guidance, on ``results/darcy_guided_100k``: (a) the
+     conditioned forward (a mixed null mask) and the residual gradient,
+     card vs CPU; (b) guided sampling at scales 1 and 3, 64 fp32 samples,
+     launches K1 1600 and K2 7600 (two UNet calls a step), each median
+     within 0.5x-2x the JAX package's fp32 CPU median of the same weights
+     and scale; (c) one guided train step at B=64 with a mixed mask, card vs
+     CPU; (d) its training main path in the run's bf16, GUIDED_STEPS steps,
+     K1 8 and K2 38 a step, all on bf16 x.
+ 18. the training step as a CUDA graph (``trainer.GraphedTrainStep``): (a)
+     GRAPH_STEPS replayed steps bit-equal to as many eager steps (weights,
+     EMA, Adam state, counters, last loss) under cuDNN's deterministic
+     algorithms, with ``ema_start`` inside the run (two captures), in fp32,
+     bf16 + fp32 head and the guided recipe; launches counted only while
+     capturing; (b) steps/s of 9d's and 13c's training eager and from the
+     graph, in turns, beside 9d's and 13c's own.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
 forward and backward on bf16 x (K2's: 36 of a step's 38), on the stage run
@@ -187,9 +208,10 @@ STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-5, 1e-3
 # reading.
 EMA_LOSS_BAND, EMA_DATA_LOSS_BAND = (0.0096, 0.0383), (0.0094, 0.0378)
 EMA_RESIDUAL_BAND = (0.0155, 0.0619)
-# 200 steps from those weights: the mean of the last 50 losses below 3x the
-# JAX run's mean training loss over its last 20k iterations (0.037)
-TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 200, 64, 0.11
+# 100 steps from those weights (cut from 200 to make room for
+# phases 16-18): the mean of the last 50 losses below 3x the JAX run's mean
+# training loss over its last 20k iterations (0.037)
+TRAIN_STEPS, TRAIN_BATCH, LAST50_MAX = 100, 64, 0.11
 # the launches of one train step: (forward, forward on bf16 x, backward,
 # backward on bf16 x) of K1, then of K2, then of K4, one of each per UNet
 # call; the default UNet calls no K4. In bf16 with the fp32 head every call
@@ -246,6 +268,29 @@ CM_FP32_STEP_LAUNCHES = ((8, 0, 8, 0), (20, 0, 20, 0), (18, 0, 18, 0))
 CM_BF16_STEP_LAUNCHES = ((8, 8, 8, 8), (22, 20, 22, 20), (16, 16, 16, 16))
 # cm sampling's residual median within CM_MEDIAN_RTOL of phase 6's
 CM_MEDIAN_RTOL = 0.1
+# phase 16: the DDIM x0 sample-estimation run (x0_estimation='sample',
+# ddim_steps 0: two UNet calls a loss, batch 16). Its fp32 sampling median
+# within 0.5x-2x the run's fp32 CPU evaluation, 7.819e-3
+# (results/darcy_sample_100k/evaluation_2/validation/sample_statistics.csv);
+# DDIM_STEPS steps of its training main path, K1 and K2 twice a step
+SAMPLE_RUN = ROOT / "results" / "darcy_sample_100k" / "portable"
+DDIM_MEDIAN_RANGE = (3.91e-3, 1.56e-2)
+DDIM_STEPS, DDIM_BATCH = 100, 16
+DDIM_STEP_LAUNCHES = ((16, 0, 16, 0), (76, 0, 76, 0), (0, 0, 0, 0))
+# phase 17: the residual-gradient guidance run (bf16 compute, no fp32 head).
+# Guided fp32 sampling medians within 0.5x-2x the JAX package's own fp32 CPU
+# medians of the same weights, 64 samples, seed 0 (`JAX_PLATFORMS=cpu python
+# sample_eval.py --model-dir <copy of results/darcy_guided_100k/portable>
+# --compute-dtype float32 --no-samples 64 --guidance-scale S`; PERF.md). The
+# committed medians (4.40e-2, 1.20e-1) are bf16 on a TPU and set no target.
+GUIDED_RUN = ROOT / "results" / "darcy_guided_100k" / "portable"
+GUIDED_JAX_FP32_MEDIANS = {1.0: 1.0531e-2, 3.0: 1.0666e-2}
+GUIDED_STEPS = 50
+# its training step: one conditioned UNet call, all on bf16 x
+GUIDED_STEP_LAUNCHES = ((8, 8, 8, 8), (38, 38, 38, 38), (0, 0, 0, 0))
+# phase 18: graph-replayed steps against eager steps, bit for bit, with the
+# EMA gate crossed inside the run; then steps/s both ways, in turns
+GRAPH_STEPS, GRAPH_EMA_START, GRAPH_TIMED_STEPS = 40, 20, 50
 
 
 def phase(name: str):
@@ -584,10 +629,13 @@ def launches_of(steps: int, per_step: tuple) -> tuple:
     return tuple(tuple(steps * v for v in row) for row in per_step)
 
 
-def step_card_vs_cpu(what: str, dev, ds, cm: bool = False) -> None:
-    """One fp32 train step at B=8 from the 300k EMA weights (with
-    ``cm_conv_stages`` when ``cm``) on the card (kernels) and on the CPU
-    (plain versions), on the same batch, t and noise from the training set
+def step_card_vs_cpu(what: str, dev, ds, cm: bool = False, run: Path = RUN,
+                     batch_size: int = 8) -> None:
+    """One fp32 train step at ``batch_size`` from the EMA weights of ``run``
+    (300k by default; with ``cm_conv_stages`` when ``cm``), with the loss of
+    the run's config (DDIM x0 sample-estimation, guidance), on the card
+    (kernels) and on the CPU (plain versions), on the same batch, t, noise
+    and null mask (a mixed one, for a guided run) from the training set
     ``ds``: the loss within STEP_LOSS_RTOL relative, each parameter's
     gradient within STEP_GRAD_TOL of its largest entry."""
     import torch
@@ -596,21 +644,30 @@ def step_card_vs_cpu(what: str, dev, ds, cm: bool = False) -> None:
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 
     ph = phase(what)
-    cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
-    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    cfg, model, _ = sample_eval.load_run(run, compute_dtype="float32", device=dev)
+    _, model_cpu, _ = sample_eval.load_run(run, compute_dtype="float32", device="cpu")
     model.cm_conv_stages = model_cpu.cm_conv_stages = cm
     sched = create_schedule(cfg.diff_steps)
     loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
     loss_cpu_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, "cpu"), cfg)
     rng = np.random.default_rng(0)
-    idx, t = rng.integers(0, N_TRAIN, 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
+    idx = rng.integers(0, N_TRAIN, batch_size)
+    t = torch.from_numpy(rng.integers(0, cfg.diff_steps, batch_size))
     batch = torch.from_numpy(ds.stacked()[idx])
     noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    extra = ()
+    if cfg.residual_grad_guidance:  # every fourth sample masked
+        extra = (torch.arange(batch_size) % 4 == 0,)
     params, params_cpu = list(model.parameters()), list(model_cpu.parameters())
-    loss, _ = loss_fn(model, batch.to(dev), t.to(dev), noise.to(dev))
+    t_card = time.perf_counter()
+    loss, _ = loss_fn(model, batch.to(dev), t.to(dev), noise.to(dev),
+                      *(e.to(dev) for e in extra))
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    loss_cpu, _ = loss_cpu_fn(model_cpu, batch, t, noise)
+    torch.cuda.synchronize()
+    t_cpu = time.perf_counter()
+    loss_cpu, _ = loss_cpu_fn(model_cpu, batch, t, noise, *extra)
     grads_cpu = torch.autograd.grad(loss_cpu, params_cpu, allow_unused=True)
+    t_end = time.perf_counter()
     rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
     if not np.isfinite(loss.item()) or rel > STEP_LOSS_RTOL:
         raise AssertionError(f"train step loss card {loss.item():.8e} vs CPU "
@@ -619,27 +676,30 @@ def step_card_vs_cpu(what: str, dev, ds, cm: bool = False) -> None:
     for (name, _), g, gc in zip(model.named_parameters(), grads, grads_cpu):
         if (g is None) != (gc is None):
             raise AssertionError(f"{name}: gradient on one device only")
-        if g is None:  # the guidance-conditioning modules, unused by this loss
+        if g is None:  # the guidance-conditioning modules, unused but in guided runs
             continue
         scale, err = gc.abs().max().item(), (g.cpu() - gc).abs().max().item()
         if not torch.isfinite(g).all() or err > STEP_GRAD_TOL * scale:
             raise AssertionError(f"{name}: card vs CPU gradient max |diff| {err:.3e} > "
                                  f"{STEP_GRAD_TOL} x max |g| {scale:.3e}")
         worst, compared = max(worst, err / max(scale, 1e-30)), compared + 1
-    done(ph, loss_card=f"{loss.item():.8e}", loss_cpu=f"{loss_cpu.item():.8e}",
-         loss_rel=f"{rel:.2e}", grads_compared=compared, worst_grad_rel=f"{worst:.2e}")
+    done(ph, batch=batch_size, loss_card=f"{loss.item():.8e}", loss_cpu=f"{loss_cpu.item():.8e}",
+         loss_rel=f"{rel:.2e}", grads_compared=compared, worst_grad_rel=f"{worst:.2e}",
+         card_s=f"{t_cpu - t_card:.2f}", cpu_s=f"{t_end - t_cpu:.2f}")
 
 
-def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: str):
-    """A training main path: TRAIN_STEPS steps at TRAIN_BATCH from
-    ``model``'s weights with fresh Adam through
-    ``trainer.resident_train_step`` on the device-resident ``data``, with the
-    launch counts zeroed just before and read just after, held to
-    ``per_step`` (``launch_counts()``'s rows) for each step; finite losses,
-    the mean of the last 50 below LAST50_MAX. Returns (the train state, the
-    launch counts, steps/s)."""
+def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: str,
+                    steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH):
+    """A training main path: ``steps`` steps at ``batch`` from ``model``'s
+    weights with fresh Adam through ``trainer.resident_train_step`` on the
+    device-resident ``data`` (with the null-conditioning mask of a guided
+    ``cfg``), with the launch counts zeroed just before and read just after,
+    held to ``per_step`` (``launch_counts()``'s rows) for each step; finite
+    losses, the mean of the last 50 below LAST50_MAX. Returns (the train
+    state, the launch counts, steps/s)."""
     import torch
 
+    from physicsinformeddiffusionmodels_tpu_torch import train
     from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
         create_train_state, make_optimizer, resident_train_step)
 
@@ -651,13 +711,14 @@ def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: 
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
-                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
+    for _ in range(steps):
+        aux = resident_train_step(state, loss_fn, data, batch, cfg.diff_steps, cfg.seed,
+                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start,
+                                  null_cond_prob=train.null_cond_prob(cfg))
         losses.append(aux.loss.detach())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    got, want = launch_counts(), launches_of(TRAIN_STEPS, per_step)
+    got, want = launch_counts(), launches_of(steps, per_step)
     if got != want:
         raise AssertionError(f"{what}: launches K1, K2, K4 (fwd, fwd bf16, bwd, bwd bf16) "
                              f"{got}, want {want}")
@@ -666,10 +727,10 @@ def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: 
     if not np.isfinite(losses).all() or last50 >= LAST50_MAX:
         raise AssertionError(f"{what}: losses finite {np.isfinite(losses).all()}, "
                              f"mean of the last 50 {last50:.4e} (limit {LAST50_MAX})")
-    steps_per_s = TRAIN_STEPS / seconds
-    done(ph, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seconds=f"{seconds:.2f}",
+    steps_per_s = steps / seconds
+    done(ph, steps=steps, batch=batch, seconds=f"{seconds:.2f}",
          steps_per_s=f"{steps_per_s:.3f}",
-         samples_per_s=f"{TRAIN_STEPS * TRAIN_BATCH / seconds:.1f}",
+         samples_per_s=f"{steps * batch / seconds:.1f}",
          peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
          first_loss=f"{losses[0]:.4e}", last50_mean=f"{last50:.4e}",
          **{f"{k}_fwd_bf16_bwd_bf16": "/".join(map(str, row))
@@ -680,7 +741,7 @@ def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: 
 
 def train_phase(tmp: Path, dev, smi: str) -> tuple[tuple[int, int, int, int], float]:
     """Phase 9; its data stays in ``tmp`` for phases 13 and 15. Returns the
-    launch counts of the 200-step run (K1 forward, K1 backward, K2 forward,
+    launch counts of the main-path run (K1 forward, K1 backward, K2 forward,
     K2 backward) and its steps/s."""
     import torch
 
@@ -870,7 +931,7 @@ def bf16_step_phase(ds, dev) -> None:
 
 def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int, float]:
     """Phase 13 on phase 9's data in ``tmp``. Returns the launch counts of
-    the 200-step bf16 run (K1's forward, K1's backward, K2's forward and
+    the bf16 main-path run (K1's forward, K1's backward, K2's forward and
     K2's backward, each on bf16 x) and its steps/s."""
     import torch
 
@@ -1252,6 +1313,243 @@ def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict) -
     return tuple(counts)
 
 
+def sampling_main_path(what: str, run: Path, out: Path, per_step: tuple, median_range: tuple,
+                       **overrides) -> dict:
+    """``sample_eval`` of ``run``'s EMA weights, 64 fp32 samples, seed 0,
+    with the launch counts zeroed just before and read just after, held to
+    ``per_step`` (K1's, K2's and K4's forward launches a sampling step); the
+    residual median in ``median_range``. Returns the summary."""
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+
+    ph = phase(what)
+    zero_launch_counts()
+    summary = sample_eval.evaluate(run, SAMPLES, "float32", "cuda", seed=0, out=out, **overrides)
+    launches = tuple(row[0] for row in launch_counts())
+    want = tuple(STEPS * n for n in per_step)
+    med = summary["residual_median"]
+    if launches != want or not (np.isfinite(summary["res_b"]).all()
+                                and median_range[0] <= med <= median_range[1]):
+        raise AssertionError(f"{what}: launches K1, K2, K4 {launches} (want {want}), residual "
+                             f"median {med:.4e} (range {median_range})")
+    done(ph, residual_median=f"{med:.4e}", residual_mean=f"{summary['residual_mean']:.4e}",
+         sampling_seconds=f"{summary['seconds']:.2f}",
+         samples_per_s=f"{summary['samples_per_s']:.2f}",
+         k1_k2_k4_launches="/".join(map(str, launches)))
+    return summary
+
+
+def ddim_phase(tmp: Path, dev, smi: str) -> float:
+    """Phase 16 on phase 9's data in ``tmp``: the DDIM run's sampling, one
+    DDIM train step card vs CPU, then its training main path. Returns that
+    path's steps/s."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    sampling_main_path("16a DDIM run: sampling (main path)", SAMPLE_RUN, tmp / "eval_ddim",
+                       (8, 38, 0), DDIM_MEDIAN_RANGE)
+    ds = load_darcy_dataset(tmp / "train")
+    step_card_vs_cpu("16b one DDIM train step, card vs CPU", dev, ds, run=SAMPLE_RUN,
+                     batch_size=DDIM_BATCH)
+    cfg, model, _ = sample_eval.load_run(SAMPLE_RUN, compute_dtype="float32", device=dev)
+    cfg.compute_dtype = "float32"
+    if not (cfg.use_ddim_x0 and cfg.ddim_steps == 0 and cfg.train_batch_size == DDIM_BATCH):
+        raise AssertionError(f"{SAMPLE_RUN}: not a DDIM run at batch {DDIM_BATCH}")
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    data = torch.as_tensor(ds.stacked(), device=dev)
+    state, _, steps_per_s = train_main_path(
+        "16c DDIM training (main path)", model.train(), cfg, loss_fn, data, DDIM_STEP_LAUNCHES,
+        smi, steps=DDIM_STEPS, batch=DDIM_BATCH)
+    del state, model
+    return steps_per_s
+
+
+def guidance_phase(tmp: Path, dev, smi: str) -> float:
+    """Phase 17 on phase 9's data in ``tmp``: the guided run's conditioned
+    forward card vs CPU, guided sampling at scales 1 and 3, one guided train
+    step card vs CPU at B=64 with a mixed null mask, then its training main
+    path in the run's bf16. Returns that path's steps/s."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    ph = phase("17a guided checkpoint forward with cond, card vs CPU")
+    cfg, model, _ = sample_eval.load_run(GUIDED_RUN, compute_dtype="float32", device=dev)
+    _, model_cpu, _ = sample_eval.load_run(GUIDED_RUN, compute_dtype="float32", device="cpu")
+    if not cfg.residual_grad_guidance:
+        raise AssertionError(f"{GUIDED_RUN} is not a guided run")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 8))
+    mask = torch.arange(8) % 3 == 0
+    cond_cpu = train.make_physics(cfg, "cpu").residual_gradient(x)
+    cond = train.make_physics(cfg, dev).residual_gradient(x.to(dev))
+    cond_err = (cond.cpu() - cond_cpu).abs().max().item()
+    with torch.no_grad():
+        y = model(x.to(dev), t.to(dev), cond=cond_cpu.to(dev), null_mask=mask.to(dev)).cpu()
+        y_ref = model_cpu(x, t, cond=cond_cpu, null_mask=mask)
+        y_plain = model_cpu(x, t)
+    err = (y - y_ref).abs().max().item()
+    # the transplant tolerance, as phase 5; the residual gradient as phase 11's
+    if (not torch.isfinite(y).all() or err > 5e-4
+            or cond_err > CORRECTION_TOL * cond_cpu.abs().max().item()):
+        raise AssertionError(f"guided forward: card vs CPU max |diff| {err:.3e}; residual "
+                             f"gradient max |diff| {cond_err:.3e}")
+    del model, model_cpu
+    done(ph, max_abs_err=f"{err:.3e}", residual_gradient_max_abs_err=f"{cond_err:.3e}",
+         cond_vs_uncond_max_abs_diff=f"{(y_ref - y_plain).abs().max().item():.3e}")
+
+    medians = {}
+    for scale, ref in GUIDED_JAX_FP32_MEDIANS.items():
+        summary = sampling_main_path(
+            f"17b guided sampling at scale {scale:g} (main path)", GUIDED_RUN,
+            tmp / f"eval_guided_{scale:g}", (16, 76, 0), (0.5 * ref, 2.0 * ref),
+            guidance_scale=scale)
+        if summary["guidance_scale"] != scale:
+            raise AssertionError(f"eval_settings.json records scale {summary['guidance_scale']}")
+        medians[scale] = summary["residual_median"]
+    print("  guided medians, port fp32 on the card against JAX fp32 on the CPU: " + json.dumps(
+        {f"{k:g}": [f"{medians[k]:.4e}", f"{v:.4e}"] for k, v in
+         GUIDED_JAX_FP32_MEDIANS.items()}), flush=True)
+
+    ds = load_darcy_dataset(tmp / "train")
+    step_card_vs_cpu("17c one guided train step, card vs CPU", dev, ds, run=GUIDED_RUN,
+                     batch_size=TRAIN_BATCH)
+    cfg, model, _ = sample_eval.load_run(GUIDED_RUN, device=dev)
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    data = torch.as_tensor(ds.stacked(), device=dev)
+    state, _, steps_per_s = train_main_path(
+        f"17d guided training, {cfg.compute_dtype} (main path)", model.train(), cfg, loss_fn,
+        data, GUIDED_STEP_LAUNCHES, smi, steps=GUIDED_STEPS)
+    del state, model
+    return steps_per_s
+
+
+def _recipe(run: Path, dtype, dev, ema_start=None):
+    """(cfg, model in train mode, loss_fn) of ``run``'s EMA weights in
+    ``dtype`` (None: the run's)."""
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    cfg, model, _ = sample_eval.load_run(run, compute_dtype=dtype, device=dev)
+    cfg.compute_dtype = dtype or cfg.compute_dtype
+    if ema_start is not None:
+        cfg.ema_start = ema_start
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    return cfg, model.train(), loss_fn
+
+
+def graph_phase(tmp: Path, dev, smi: str, steps_per_s: dict) -> None:
+    """Phase 18 on phase 9's data in ``tmp``: (a) GRAPH_STEPS steps replayed
+    from ``trainer.GraphedTrainStep`` against as many eager steps from the
+    same weights and draws, bit for bit (weights, EMA, Adam's moments and
+    step, the optimizer's count, the last loss), under cuDNN's deterministic
+    algorithms, in fp32, bf16 + fp32 head and the guided recipe, with
+    ``ema_start`` inside the run (two captures); (b) steps/s of 9d's and
+    13c's training eager and from the graph, GRAPH_TIMED_STEPS each, in
+    turns (eager, graph, graph, eager), beside 9d's and 13c's own."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        GraphedTrainStep, create_train_state, make_optimizer, resident_train_step)
+
+    data = torch.as_tensor(load_darcy_dataset(tmp / "train").stacked(), device=dev)
+
+    def steps(state, cfg, loss_fn, gen, n, graphed=None):
+        for _ in range(n):
+            aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps,
+                                      cfg.seed, gen, ema_mu=cfg.ema_decay,
+                                      ema_start=cfg.ema_start,
+                                      null_cond_prob=train.null_cond_prob(cfg), graphed=graphed)
+        return aux
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for name, run, dtype, per_step in (
+                ("fp32", RUN, "float32", FP32_STEP_LAUNCHES),
+                ("bf16 + fp32 head", RUN, "bfloat16", BF16_STEP_LAUNCHES),
+                ("guided, bf16", GUIDED_RUN, None, GUIDED_STEP_LAUNCHES)):
+            ph = phase(f"18a {GRAPH_STEPS} graph-replayed steps vs eager, {name}")
+            runs = []
+            for graph in (False, True):
+                cfg, model, loss_fn = _recipe(run, dtype, dev, ema_start=GRAPH_EMA_START)
+                state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
+                graphed = GraphedTrainStep(state, loss_fn, cfg.ema_decay,
+                                           cfg.ema_start) if graph else None
+                zero_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                aux = steps(state, cfg, loss_fn, torch.Generator(device=dev), GRAPH_STEPS,
+                            graphed)
+                torch.cuda.synchronize()
+                runs.append((state, aux.loss.detach().clone(), launch_counts(), graphed,
+                             time.perf_counter() - t0))
+            (eager, loss_e, counts_e, _, sec_e), (replay, loss_g, counts_g, graphed, sec_g) = runs
+            # wrapper calls are made only while capturing (warm-up steps and
+            # the capture itself); a replay makes none
+            captured = graphed.captures * (GraphedTrainStep.WARMUP + 1)
+            want_e, want_g = launches_of(GRAPH_STEPS, per_step), launches_of(captured, per_step)
+            same = {
+                "params": all(torch.equal(a, b) for a, b in zip(eager.model.parameters(),
+                                                                replay.model.parameters())),
+                "ema": all(torch.equal(a, b) for a, b in zip(eager.ema.parameters(),
+                                                             replay.ema.parameters())),
+                "adam": all(torch.equal(sa[k], sb[k])
+                            for sa, sb in zip(eager.optimizer.adam.state.values(),
+                                              replay.optimizer.adam.state.values())
+                            for k in ("step", "exp_avg", "exp_avg_sq")),
+                "counts": (eager.step, eager.optimizer.count) == (replay.step,
+                                                                   replay.optimizer.count)
+                == (GRAPH_STEPS, GRAPH_STEPS),
+                "loss": torch.equal(loss_e, loss_g),
+                "ema_moved": not all(torch.equal(a, b) for a, b in zip(
+                    eager.ema.parameters(), eager.model.parameters())),
+            }
+            if (not all(same.values()) or graphed.captures != 2 or counts_e != want_e
+                    or counts_g != want_g or len(eager.optimizer.adam.state) == 0):
+                raise AssertionError(f"18a {name}: equal {same}, captures {graphed.captures}, "
+                                     f"launches eager {counts_e} (want {want_e}), graph run "
+                                     f"{counts_g} (want {want_g})")
+            done(ph, bit_equal=all(same.values()), captures=graphed.captures,
+                 adam_tensors=len(eager.optimizer.adam.state), last_loss=f"{loss_e.item():.6e}",
+                 eager_s=f"{sec_e:.2f}", graph_s_with_captures=f"{sec_g:.2f}")
+            del runs, eager, replay, graphed
+
+    for key, dtype in (("9d", "float32"), ("13c", "bfloat16")):
+        ph = phase(f"18b steps/s of {key} eager and from the graph")
+        cfg, model, loss_fn = _recipe(RUN, dtype, dev)
+        state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
+        graphed = GraphedTrainStep(state, loss_fn, cfg.ema_decay, cfg.ema_start)
+        gen = torch.Generator(device=dev)
+        steps(state, cfg, loss_fn, gen, 3)
+        steps(state, cfg, loss_fn, gen, 1, graphed)  # the capture
+        rates = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(state, cfg, loss_fn, gen, GRAPH_TIMED_STEPS,
+                  graphed if mode == "graph" else None)
+            torch.cuda.synchronize()
+            rates[mode].append(GRAPH_TIMED_STEPS / (time.perf_counter() - t0))
+        eager_sps, graph_sps = float(np.mean(rates["eager"])), float(np.mean(rates["graph"]))
+        steps_per_s[f"{key} graph"] = graph_sps
+        done(ph, eager_steps_per_s="/".join(f"{r:.3f}" for r in rates["eager"]),
+             graph_steps_per_s="/".join(f"{r:.3f}" for r in rates["graph"]),
+             graph_over_eager=f"{graph_sps / eager_sps:.3f}",
+             main_path_steps_per_s=f"{steps_per_s[key]:.3f}")
+        print(f"  {smi}", flush=True)
+        del state, graphed, model
+
+
 def corrected_sampling_phase(dev, plain_summary: dict) -> None:
     """Phase 11, against phase 6's ``sample_eval`` summary."""
     import torch
@@ -1490,6 +1788,12 @@ def main() -> int:
         fp32_counts, bf16_counts = cm_phase(Path(tmp), dev, smi, summary, steps_per_s)
         k4["launches"], k4b["launches"] = fp32_counts[0], fp32_counts[2]
         k4["bf16_launches"], k4b["bf16_launches"] = bf16_counts[1], bf16_counts[3]
+
+        steps_per_s["16c"] = ddim_phase(Path(tmp), dev, smi)
+        steps_per_s["17d"] = guidance_phase(Path(tmp), dev, smi)
+        graph_phase(Path(tmp), dev, smi, steps_per_s)
+        print("  training steps/s (main paths; graph: 18b): " + json.dumps(
+            {k: f"{v:.3f}" for k, v in steps_per_s.items()}), flush=True)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (

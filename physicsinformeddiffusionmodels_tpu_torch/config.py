@@ -2,8 +2,8 @@
 
 The field names match ``physicsinformeddiffusionmodels_tpu/config.py`` so
 that every ``results/*/portable/config.json`` loads unchanged. Fields that
-select training, mesh or data behaviour are carried so that such files
-load; this slice reads only the ones the Darcy sampling path needs.
+select mesh or mechanics behaviour are carried so that such files load;
+the port refuses them where it does not implement them yet.
 """
 
 from __future__ import annotations
@@ -99,6 +99,21 @@ class RunConfig:
                 self.train_batch_size = 4 if use_ddim else 6
         if self.unet_dim is None:
             self.unet_dim = 32 if self.gov_eqs == "darcy" else 128
+
+    def validate_chunking(self) -> None:
+        """With chunk_steps > 1, every periodic event must land on a chunk
+        end, or the training loop would skip it mid-chunk."""
+        if self.chunk_steps <= 1:
+            return
+        for name in ("log_freq", "test_eval_freq", "sample_freq"):
+            v = getattr(self, name)
+            if v % self.chunk_steps != 0:
+                raise ValueError(
+                    f"{name}={v} must be a multiple of chunk_steps={self.chunk_steps}")
+
+    @property
+    def use_ddim_x0(self) -> bool:
+        return self.x0_estimation == "sample"
 
     @property
     def output_channels(self) -> int:

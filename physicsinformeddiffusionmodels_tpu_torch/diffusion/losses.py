@@ -151,14 +151,16 @@ def pidm_loss(sched: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
     ``t`` [B] and ``noise`` (x0's shape) are given by the caller. The
     inequality term uses each sample's own variance; the reference
     broadcasts a [B] value against [B, 1] variances into a [B, B] matrix.
-    ``x0_sampler`` (the DDIM estimate of x0_estimation='sample') is not
-    ported yet.
+    ``x0_sampler(x_t, t) -> (x0_sample, first_model_out)`` is the DDIM
+    estimate of x0_estimation='sample': the physics terms take x0_sample,
+    and the data loss the chain's first model output, which is the direct
+    prediction at (x_t, t), so ``denoise_fn`` is not called.
     """
-    if x0_sampler is not None:
-        raise NotImplementedError(
-            "x0_estimation='sample' (DDIM x0 sampler) is not ported yet: ROADMAP Queue 1 item 5")
     x_t = q_sample(sched, x0, t, noise)
-    x0_est, model_out = estimate_x0(sched, denoise_fn, x_t, t, pred_mode)
+    if x0_sampler is not None:
+        x0_est, model_out = x0_sampler(x_t, t)
+    else:
+        x0_est, model_out = estimate_x0(sched, denoise_fn, x_t, t, pred_mode)
     if model_out_transform is not None:
         model_out = model_out_transform(model_out)
 

@@ -5,7 +5,8 @@ is how the Darcy study samples, with the inference-time options of the JAX
 sampler: Imagen-style dynamic thresholding, CoCoGen residual corrections
 (arXiv 2312.10527) on the x0 prediction or on the sampled state in the last
 ``n_correction`` steps plus ``m_correction`` post-steps, and the per-step
-history. DDIM belongs to a later slice.
+history; and the short DDIM chain that estimates x0 inside the training
+loss of ``x0_estimation='sample'`` (``ddim_sample_x0``).
 
 JAX draws the noise from split keys inside a ``lax.scan``; here the loop is
 a Python loop over the T model calls, and the noise comes either from a
@@ -22,7 +23,10 @@ import torch
 
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
+    extract,
     posterior_mean,
+    predict_noise_from_mean,
+    predict_start_from_noise,
 )
 
 Noise = Union[torch.Generator, torch.Tensor]
@@ -121,3 +125,81 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
         return SampleResult(x=x, x0_pred=final)
     return SampleResult(x=x, x0_pred=x0_history[-1], history=torch.stack(history),
                         x0_history=torch.stack(x0_history))
+
+
+def ddim_time_ladders(t: torch.Tensor, ddim_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample descending DDIM time ladders: for a start time t_b, k =
+    ddim_steps + 2 times spread evenly over [0, t_b] and truncated to
+    integers, descending, each paired with the next (the last pair is (0,
+    -1)). Returns (cur_times, next_times), each [k, B] int64 on t's device.
+
+    The float32 arithmetic is ``jnp.linspace``'s: t * (i / (k - 1)) for i <
+    k - 1, and t itself last, so the ladders equal JAX's exactly.
+    """
+    k = ddim_steps + 2
+    t = torch.atleast_1d(t)
+    tf = t.float()
+    div = k - 1
+    step = torch.arange(div, dtype=torch.float32, device=t.device) / float(div)
+    asc = torch.cat([tf[None, :] * step[:, None], tf[None, :]], dim=0).floor().long()
+    cur = asc.flip(0)
+    nxt = torch.cat([cur[1:], torch.full_like(cur[:1], -1)], dim=0)
+    return cur, nxt
+
+
+def ddim_sample_x0(sched: DiffusionSchedule, denoise_fn: Callable, x_t: torch.Tensor,
+                   t: torch.Tensor, *, ddim_steps: int = 0, eta: float = 0.0,
+                   noise: Optional[torch.Tensor] = None,
+                   pred_mode: str = "x0") -> tuple[torch.Tensor, torch.Tensor]:
+    """Estimate x0 from x_t with a short DDIM chain down to t = 0; autograd
+    flows through it (the training loss of x0_estimation='sample').
+
+    The per-sample ladders (``ddim_time_ladders``) have a fixed length of
+    ddim_steps + 2 model calls, ``denoise_fn(x, t_batch)`` each. Where a
+    ladder stalls (cur == next, as at small t) the state is kept bit for
+    bit; the last entry (next = -1) returns the x0 prediction itself.
+    ``noise`` is the [k, *x_t.shape] standard normal draw of each entry,
+    needed only when ``eta > 0`` (every call site of the JAX package has eta
+    = 0, where the noise term is exactly 0). Returns (x0_sample, the first
+    call's model output), the latter the direct prediction at (x_t, t).
+    """
+    b = x_t.shape[0]
+    t = torch.broadcast_to(torch.atleast_1d(t), (b,))
+    cur_times, next_times = ddim_time_ladders(t, ddim_steps)
+    k = cur_times.shape[0]
+    if eta > 0 and (noise is None or tuple(noise.shape) != (k, *x_t.shape)):
+        raise ValueError(f"eta > 0 needs a noise tensor of shape [{k}, "
+                         f"{', '.join(map(str, x_t.shape))}]")
+    bshape = (-1, *((1,) * (x_t.ndim - 1)))
+    cur_x, first_out = x_t, None
+    for i in range(k):
+        tc, tn = cur_times[i], next_times[i]
+        model_out = denoise_fn(cur_x, tc)
+        if pred_mode == "x0":
+            x0_pred = model_out
+            mean = posterior_mean(sched, x0_pred, cur_x, tc)
+            eps_theta = predict_noise_from_mean(sched, cur_x, tc, mean)
+        elif pred_mode == "eps":
+            eps_theta = model_out
+            x0_pred = predict_start_from_noise(sched, cur_x, tc, eps_theta)
+        elif pred_mode == "mu":
+            eps_theta = predict_noise_from_mean(sched, cur_x, tc, model_out)
+            x0_pred = predict_start_from_noise(sched, cur_x, tc, eps_theta)
+        else:
+            raise ValueError(f"Unknown pred_mode: {pred_mode!r}")
+        if first_out is None:
+            first_out = model_out
+
+        alpha = extract(sched.alphas_prod, tc, cur_x.ndim)
+        alpha_next = extract(sched.alphas_prod, tn.clamp(min=0), cur_x.ndim)
+        sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
+        c = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
+        update = x0_pred * torch.sqrt(alpha_next) + c * eps_theta
+        if eta > 0:
+            update = update + sigma * noise[i].to(update.dtype)
+        # the final entry (t_next < 0): the x0 prediction itself
+        nxt = torch.where(tn.reshape(bshape) < 0, x0_pred, update)
+        # no update where the ladder stalls (cur == next)
+        stall = (tc == tn).to(cur_x.dtype).reshape(bshape)
+        cur_x = stall * cur_x + (1.0 - stall) * nxt
+    return cur_x, first_out

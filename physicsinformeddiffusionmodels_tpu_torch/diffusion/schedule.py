@@ -5,7 +5,9 @@ package builds them. They stay numpy arrays on the host: the sampling loop
 reads one scalar per step, and a Python float multiplied into a float32
 tensor is applied at float32, so the device sees exactly the JAX values
 without a host-device copy per table. A per-sample gather (training, where
-t is a [B] tensor) copies the table to t's device.
+t is a [B] tensor) reads a copy of the table on t's device, made once per
+table and device, so that a training step makes no host-device copy (a
+CUDA graph of it could not).
 """
 
 from __future__ import annotations
@@ -104,6 +106,19 @@ def create_schedule(n_steps: int, schedule: str = "cosine",
     )
 
 
+# (id of a table, device) -> (the table, kept alive so that its id stays
+# unique, and its copy on the device)
+_DEVICE_TABLES: dict = {}
+
+
+def _on_device(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    key = (id(table), str(device))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        hit = _DEVICE_TABLES[key] = (table, torch.as_tensor(table, device=device))
+    return hit[1]
+
+
 def extract(table: np.ndarray, t: int | torch.Tensor, ndim: int) -> float | torch.Tensor:
     """Coefficient ``table[t]``: a Python float for one timestep shared by
     the batch (no device copy), else per-sample values shaped [B, 1, ..., 1]
@@ -111,7 +126,7 @@ def extract(table: np.ndarray, t: int | torch.Tensor, ndim: int) -> float | torc
     if isinstance(t, int):
         return float(table[t])
     t = torch.atleast_1d(t)
-    out = torch.as_tensor(table, device=t.device)[t]
+    out = _on_device(table, t.device)[t]
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
 
 

@@ -27,8 +27,9 @@ flag may also be switched on a built model.
 This slice builds the Darcy configuration: zero padding, no
 self-conditioning, no sigmoid head, frame attention at F == 1 only. The
 residual-gradient conditioning modules (``emb_conv_0``, ``emb_conv_1``,
-``combine_conv``) are built so that every checkpoint loads, and are unused
-until guided sampling is ported.
+``combine_conv``) are built in every UNet, so that every checkpoint loads;
+only a call with ``cond`` runs them (``UNet.forward``, and
+``apply_with_guidance`` for classifier-free guidance).
 """
 
 from __future__ import annotations
@@ -382,12 +383,27 @@ class UNet(nn.Module):
         return (self.cm_conv_stages and width < 128 and x.ndim == 4
                 and x.shape[1] == x.shape[2] and x.shape[2] <= MAX_P)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, channels]; time: [B] (or scalar) integer timesteps."""
+    def forward(self, x: torch.Tensor, time: torch.Tensor, cond: Optional[torch.Tensor] = None,
+                null_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, H, W, channels]; time: [B] (or scalar) integer timesteps;
+        cond: an optional [B, H, W, channels] conditioning image (the
+        residual gradient), which replaces the stem's output by
+        ``combine_conv([x, emb(cond)])``; null_mask: an optional [B] bool
+        tensor, True where a sample's cond is zeroed (classifier-free
+        guidance training). A masked sample still goes through the
+        conditioning branch, with a zero cond; only cond=None bypasses it."""
         time = torch.broadcast_to(torch.atleast_1d(time), (x.shape[0],))
         x = self.init_conv(x)
         if self.frame_attention:
             x = self.init_frame_attn(x)
+        if cond is not None:
+            if null_mask is not None:
+                cond = torch.where(null_mask.reshape(-1, 1, 1, 1), 0.0, cond)
+            c = self.emb_conv_0
+            emb = F.gelu(_conv(cond, c.weight, c.bias, self.dtype))
+            emb = self.emb_conv_1(emb)
+            c = self.combine_conv
+            x = _conv(torch.cat([x, emb.to(x.dtype)], dim=-1), c.weight, c.bias, self.dtype)
         r = x
         t = _dense(self.time_pos_emb(time), self.time_mlp_0, self.dtype)
         t = _dense(F.gelu(t), self.time_mlp_1, self.dtype)
@@ -438,6 +454,17 @@ class UNet(nn.Module):
             x = self.final_block(x)
         c = self.final_conv
         return _conv(x, c.weight, c.bias, self.head_dtype)
+
+
+def apply_with_guidance(model: UNet, x: torch.Tensor, time: torch.Tensor, cond: torch.Tensor,
+                        guidance_scale: float = 3.0) -> torch.Tensor:
+    """Two-pass classifier-free guidance, null + scale * (cond - null), the
+    null pass with a zero cond; one conditioned pass at scale 1."""
+    logits = model(x, time, cond=cond)
+    if guidance_scale == 1.0:
+        return logits
+    null_logits = model(x, time, cond=torch.zeros_like(cond))
+    return null_logits + (logits - null_logits) * guidance_scale
 
 
 def build_model(cfg, compute_dtype: Optional[str] = None) -> UNet:

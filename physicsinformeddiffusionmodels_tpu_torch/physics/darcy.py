@@ -7,8 +7,8 @@ with Neumann BC residuals (+-dp/dn on the four edges) as two more channels
 and the static two-patch source field f_s. Calling the evaluator gives the
 ``PhysicsTerms`` the training loss takes; gradients flow through the FD
 operators. ``residual_correction`` is the CoCoGen correction step of the
-sampler (arXiv 2312.10527); the residual gradient of guided sampling
-belongs to a later slice.
+sampler (arXiv 2312.10527); ``residual_gradient`` is the conditioning
+signal of residual-gradient guidance.
 """
 
 from __future__ import annotations
@@ -141,3 +141,14 @@ class DarcyResidual:
             p = x[..., 0] - eps[:, None, None] * dr.detach()
             x = torch.stack([p, x[..., 1]], dim=-1)
         return x, self.residual(x)
+
+    def residual_gradient(self, x: torch.Tensor) -> torch.Tensor:
+        """d mean|r| / d x, the conditioning image of residual-gradient
+        classifier-free guidance. The mean runs over the whole batch, as in
+        the JAX package, so the signal scales with 1 / B. Taken on a
+        detached leaf, with autograd on whether or not the caller records
+        it (sampling runs under ``torch.no_grad``): a function of x alone,
+        with no graph to the caller's parameters."""
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            return torch.autograd.grad(self.residual(xx).abs().mean(), xx)[0]

@@ -2,16 +2,26 @@
 
     python -m physicsinformeddiffusionmodels_tpu_torch.train --iterations N \\
         [--batch-size B] [--data-dir DIR --valid-data-dir DIR] [--device cpu] [--resume] \\
-        [--compute-dtype {float32,bfloat16}] [--fp32-head]
+        [--compute-dtype {float32,bfloat16}] [--fp32-head] [--x0-estimation {mean,sample}] \\
+        [--residual-grad-guidance] [--chunk-steps K]
 
 Physics-informed diffusion training of ``UNet(dim=32, channels=2)`` on the
 Darcy data (``data/darcy_generator.py`` writes it), in the config's compute
 dtype: bfloat16 unless ``--compute-dtype float32``, as in the JAX driver;
 ``--fp32-head`` keeps the final block and 1x1 conv in fp32 (the recipe of
 ``results/darcy_300k_fp32head``). The loss adds the PDE
-residual log-likelihood of the x0 prediction to the p2-weighted data loss;
-global-norm clip, Adam, EMA. The whole dataset lives on the device and each
-step samples its batch there. Every ``log_freq`` steps the losses go to
+residual log-likelihood of the x0 estimate to the p2-weighted data loss;
+global-norm clip, Adam, EMA. The x0 estimate is the model's prediction
+(``--x0-estimation mean``) or a DDIM chain of ``ddim_steps + 2`` model
+calls (``sample``; batch 16 by default). ``--residual-grad-guidance``
+conditions the model on the residual gradient of its noisy input, zeroed
+for a ``null_cond_prob`` share of each batch, and samples with
+classifier-free guidance at ``guidance_scale``. The whole dataset lives on
+the device and each step samples its batch there. With ``--chunk-steps K >
+1`` step 0 runs alone and then K steps at a time, with every periodic event
+on a chunk end (``RunConfig.validate_chunking``); on the card a chunk's
+steps replay a CUDA graph of one step (``trainer.GraphedTrainStep``),
+bit-identical to eager steps. Every ``log_freq`` steps the losses go to
 ``metrics.csv``; every ``test_eval_freq`` steps the EMA weights are scored
 on a validation batch; every ``sample_freq`` steps (and at the end) the EMA
 model samples ``no_samples`` fields (CSV outputs) and a checkpoint is saved.
@@ -38,6 +48,7 @@ from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import (
     pidm_loss,
     uniform_timesteps,
 )
+from physicsinformeddiffusionmodels_tpu_torch.diffusion.sampling import ddim_sample_x0
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     create_schedule,
@@ -56,6 +67,7 @@ from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
 from physicsinformeddiffusionmodels_tpu_torch.training.metrics import MetricsLogger
 from physicsinformeddiffusionmodels_tpu_torch.training.shutdown import install_graceful_stop
 from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+    GraphedTrainStep,
     create_train_state,
     make_optimizer,
     resident_train_step,
@@ -73,12 +85,6 @@ def check_supported(cfg: RunConfig) -> None:
     """Raise for the options of the JAX driver that the port does not train yet."""
     if cfg.gov_eqs != "darcy":
         raise NotImplementedError("mechanics training is not ported yet: ROADMAP Queue 1 item 8")
-    if cfg.residual_grad_guidance:
-        raise NotImplementedError(
-            "residual-gradient guidance is not ported yet: ROADMAP Queue 1 item 6")
-    if cfg.x0_estimation != "mean":
-        raise NotImplementedError(
-            "x0_estimation='sample' (DDIM) is not ported yet: ROADMAP Queue 1 item 5")
     if cfg.mesh_tp > 1 or cfg.mesh_slices > 1 or (cfg.mesh_dp or 1) > 1:
         raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 11")
 
@@ -98,30 +104,63 @@ def make_physics(cfg: RunConfig, device) -> DarcyResidual:
     )
 
 
+def null_cond_prob(cfg: RunConfig):
+    """The null-conditioning probability whose [B] mask each training step
+    draws (guidance training), or None (no mask)."""
+    return cfg.null_cond_prob if cfg.residual_grad_guidance else None
+
+
 def build_darcy_loss_fn(sched: DiffusionSchedule, physics: DarcyResidual, cfg: RunConfig):
-    """``loss_fn(model, batch, t, noise) -> (loss, aux)``: the physics-informed
-    loss with the Darcy residual of the x0 prediction."""
+    """``loss_fn(model, batch, t, noise[, null_mask]) -> (loss, aux)``: the
+    physics-informed loss with the Darcy residual of the x0 estimate, as the
+    JAX ``train.py`` builds it.
+
+    With ``residual_grad_guidance`` every model call is conditioned on the
+    residual gradient of its input, with the step's ``null_mask`` (one draw
+    a step, reused by every call of the step). With x0_estimation='sample'
+    the x0 estimate is the DDIM chain's, whose every call re-queries the
+    model on the original noisy input x_t at the ladder's times: only the
+    DDIM algebra chains, the model input does not. The chain's first call
+    is the data loss's prediction."""
     check_supported(cfg)
     weights = LossWeights(cfg.c_data, cfg.c_residual, cfg.c_ineq, cfg.lambda_opt)
 
-    def loss_fn(model, batch, t, noise):
-        return pidm_loss(sched, batch, t, noise, denoise_fn=model, physics_fn=physics,
-                         weights=weights, pred_mode="x0")
+    def loss_fn(model, batch, t, noise, null_mask=None):
+        if cfg.residual_grad_guidance:
+            def denoise(x, tt):
+                return model(x, tt, cond=physics.residual_gradient(x), null_mask=null_mask)
+        else:
+            denoise = model
+
+        sampler = None
+        if cfg.use_ddim_x0:
+            def sampler(x_t, tt):
+                return ddim_sample_x0(sched, lambda _, ttt: denoise(x_t, ttt), x_t, tt,
+                                      ddim_steps=cfg.ddim_steps)
+
+        return pidm_loss(sched, batch, t, noise, denoise_fn=denoise, physics_fn=physics,
+                         weights=weights, pred_mode="x0", x0_sampler=sampler)
 
     return loss_fn
 
 
 @torch.no_grad()
-def eval_loss(loss_fn, model, batch: torch.Tensor, n_steps: int, generator: torch.Generator):
-    """The loss aux of ``model`` on ``batch`` with fresh t and noise."""
+def eval_loss(loss_fn, model, batch: torch.Tensor, n_steps: int, generator: torch.Generator,
+              null_prob: float | None = None):
+    """The loss aux of ``model`` on ``batch`` with fresh t and noise (and, with
+    ``null_prob``, a fresh null-conditioning mask)."""
     t = uniform_timesteps(generator, batch.shape[0], n_steps, device=batch.device)
     noise = torch.randn(batch.shape, generator=generator, device=batch.device)
-    return loss_fn(model, batch, t, noise)[1]
+    if null_prob is None:
+        return loss_fn(model, batch, t, noise)[1]
+    mask = torch.rand((batch.shape[0],), generator=generator, device=batch.device) < null_prob
+    return loss_fn(model, batch, t, noise, mask)[1]
 
 
 def run_darcy(cfg: RunConfig, device=None):
     """Train per ``cfg``; returns the final ``TrainState``."""
     check_supported(cfg)
+    cfg.validate_chunking()
     dev = resolve_device(device)
     set_fp32_exact()
     out_dir = Path(cfg.output_dir) / cfg.name
@@ -151,18 +190,36 @@ def run_darcy(cfg: RunConfig, device=None):
     should_stop = install_graceful_stop()
     step_gen = torch.Generator(device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + start_it)
+    chunk = cfg.chunk_steps
+    graphed = (GraphedTrainStep(state, loss_fn, cfg.ema_decay, cfg.ema_start)
+               if chunk > 1 and dev.type == "cuda" else None)
+
+    def step(graph):
+        return resident_train_step(state, loss_fn, data, cfg.train_batch_size, cfg.diff_steps,
+                                   cfg.seed, step_gen, ema_mu=cfg.ema_decay,
+                                   ema_start=cfg.ema_start, null_cond_prob=null_cond_prob(cfg),
+                                   graphed=graph)
+
     t0 = time.time()
     it = start_it
     while it <= cfg.train_iterations:
-        aux = resident_train_step(state, loss_fn, data, cfg.train_batch_size, cfg.diff_steps,
-                                  cfg.seed, step_gen, ema_mu=cfg.ema_decay,
-                                  ema_start=cfg.ema_start)
+        if chunk > 1 and it % chunk == 1 and it + chunk - 1 <= cfg.train_iterations:
+            # a chunk's end lands on every log, eval and sample step; a
+            # graph's aux is overwritten by its next replay, so it is read
+            # (cloned) at the chunk end only
+            for _ in range(chunk):
+                aux = step(graphed)
+            it += chunk - 1
+        else:
+            aux = step(None)
         if it % cfg.log_freq == 0:
-            logger.log({"loss": aux.loss.detach(), "loss_data": aux.data_loss.detach(),
-                        "residual_mean_abs": aux.residual_mean_abs.detach()}, step=it)
+            logger.log({"loss": aux.loss.detach().clone(),
+                        "loss_data": aux.data_loss.detach().clone(),
+                        "residual_mean_abs": aux.residual_mean_abs.detach().clone()}, step=it)
         if it % cfg.test_eval_freq == 0:
             vb = torch.as_tensor(next(dl_valid), device=dev)
-            aux_t = eval_loss(loss_fn, state.ema, vb, cfg.diff_steps, eval_gen)
+            aux_t = eval_loss(loss_fn, state.ema, vb, cfg.diff_steps, eval_gen,
+                              null_cond_prob(cfg))
             print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
                   f"res|_train={aux.residual_mean_abs.item():.3e} ({time.time() - t0:.0f}s)",
                   flush=True)
@@ -212,7 +269,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pixels-per-dim", type=int, default=None)
     ap.add_argument("--no-samples", type=int, default=None)
     ap.add_argument("--chunk-steps", type=int, default=None,
-                    help="read for config.json; the port runs step by step either way")
+                    help=">1: steps a chunk, every periodic event on a chunk end; on the card "
+                    "a chunk replays a CUDA graph of one step (bit-identical)")
     ap.add_argument("--residual-grad-guidance", action="store_true")
     ap.add_argument("--lr-schedule", default=None, choices=["constant", "cosine"])
     ap.add_argument("--lr-final-frac", type=float, default=None)

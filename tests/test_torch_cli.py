@@ -34,8 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
-sample_eval.parse_args(["--model-dir", "m", "--no-samples", "2", "--device", "cpu"])
-train.parse_args(["--iterations", "2", "--device", "cpu"])
+sample_eval.parse_args(["--model-dir", "m", "--no-samples", "2", "--device", "cpu",
+                        "--guidance-scale", "3"])
+train.parse_args(["--iterations", "2", "--device", "cpu", "--x0-estimation", "sample",
+                  "--residual-grad-guidance", "--chunk-steps", "20"])
 print(json.dumps({"modules": names,
                   "banned": sorted(k for k in sys.modules
                                    if k.split(".")[0] in banned and sys.modules[k] is not None)}))
@@ -49,7 +51,9 @@ def test_port_imports_nothing_of_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("models.unet", "train", "data.datasets", "data.darcy_generator",
                  "training.trainer", "diffusion.losses", "profile_attn", "profile_gn",
-                 "utils.timing", "utils.viz", "ops.conv_block"):
+                 "utils.timing", "utils.viz", "ops.conv_block", "diffusion.sampling",
+                 "diffusion.schedule", "physics.darcy", "sample_eval", "config",
+                 "profile_training"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 33
     assert report["banned"] == []
@@ -113,17 +117,14 @@ def test_cli_writes_jax_format_statistics(tiny_run, tmp_path):
 
     settings = json.loads((out / "eval_settings.json").read_text())
     assert settings["checkpoint_step"] == 7 and settings["device"] == "cpu"
-
-
-def test_cli_refuses_unported_sampling_options(tiny_run, tmp_path):
-    cfg = JaxRunConfig.load(tiny_run / "config.json")
-    cfg.residual_grad_guidance = True
-    run = tmp_path / "run"
-    (run / "model").mkdir(parents=True)
-    (run / "model" / "checkpoint_7.msgpack").symlink_to(tiny_run / "model/checkpoint_7.msgpack")
-    cfg.save(run / "config.json")
-    with pytest.raises(NotImplementedError, match="residual-gradient guidance"):
-        sample_eval.evaluate(run, 1, device="cpu", out=tmp_path / "eval")
+    # every key of the JAX sample_eval.py's file, beside the port's own
+    assert {"argv", "model_dir", "checkpoint_step", "no_samples", "test_batches", "seed",
+            "correction_mode", "M_correction", "N_correction", "guidance_scale",
+            "use_dynamic_threshold", "compute_dtype", "platform", "device_kind",
+            "n_devices"} <= set(settings)
+    assert settings["argv"][:2] == ["--model-dir", str(tiny_run)]
+    assert (settings["platform"], settings["device_kind"]) == ("cpu", "cpu")
+    assert not (out / "eval_settings.json.pending").exists()
 
 
 def test_cli_runs_corrected_thresholded_sampling_and_writes_gifs(tiny_run, tmp_path):

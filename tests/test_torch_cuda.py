@@ -845,3 +845,75 @@ def test_conv_block_wrapper_raises_on_what_it_does_not_take(cuda):
         conv_gn_film_silu_cm(x, w, bias.double(), gamma, beta, scale, shift, 8)
     with pytest.raises(ValueError, match="p <= 127"):
         conv_gn_film_silu_cm(x, w, bias, gamma, beta, scale, shift, 128)
+
+
+def _small_training(cuda, guided, dtype):
+    """A small UNet's state, loss and data on the card (fp32 or bf16 compute)."""
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer)
+
+    torch.manual_seed(0)
+    model = UNet(dim=32, channels=2, dim_mults=(1, 2), dtype=dtype).to(cuda)
+    cfg = RunConfig(pixels_per_dim=16, residual_grad_guidance=guided, compute_dtype="float32")
+    loss_fn = train.build_darcy_loss_fn(create_schedule(100), train.make_physics(cfg, cuda), cfg)
+    data = torch.randn(16, 16, 16, 2, generator=torch.Generator().manual_seed(1)).to(cuda)
+    state = create_train_state(model, make_optimizer(model, 1e-3, 1.0, "cosine", total_steps=20))
+    return cfg, state, loss_fn, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided,dtype", [(False, None), (False, torch.bfloat16),
+                                          (True, None)], ids=["fp32", "bf16", "guided"])
+def test_graphed_steps_equal_eager_steps_bit_for_bit(cuda, guided, dtype):
+    """12 steps replayed from ``GraphedTrainStep`` against 12 eager steps on
+    the same draws, under a cosine lr and across ema_start: the same
+    weights, EMA, Adam state and counters, bit for bit (deterministic cuDNN)."""
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        GraphedTrainStep, resident_train_step)
+
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for graph in (False, True):
+            cfg, state, loss_fn, data = _small_training(cuda, guided, dtype)
+            graphed = GraphedTrainStep(state, loss_fn, ema_start=5) if graph else None
+            gen = torch.Generator(device=cuda)
+            for _ in range(12):
+                aux = resident_train_step(state, loss_fn, data, 4, 100, 7, gen, ema_start=5,
+                                          null_cond_prob=train.null_cond_prob(cfg),
+                                          graphed=graphed)
+            torch.cuda.synchronize()
+            runs.append((state, aux.loss.clone(), graphed))
+    (eager, loss_e, _), (replay, loss_g, graphed) = runs
+    assert graphed.captures == 2 and torch.equal(loss_e, loss_g)
+    for a, b in ((eager.model, replay.model), (eager.ema, replay.ema)):
+        assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    for sa, sb in zip(eager.optimizer.adam.state.values(), replay.optimizer.adam.state.values()):
+        assert all(torch.equal(sa[k], sb[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    assert (eager.step, eager.optimizer.count) == (replay.step, replay.optimizer.count) == (12, 12)
+
+
+@pytest.mark.cuda
+def test_a_step_that_cannot_be_captured_raises(cuda):
+    """A loss that reads a value back to the host cannot be captured: the
+    capture raises, and nothing falls back to an eager step."""
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import GraphedTrainStep
+
+    _, state, loss_fn, data = _small_training(cuda, False, None)
+
+    def syncing(model, *args):
+        loss, aux = loss_fn(model, *args)
+        if loss.item() > 0:  # a host sync: illegal while capturing
+            return loss, aux
+        return loss, aux
+
+    graphed = GraphedTrainStep(state, syncing)
+    t = torch.zeros(4, dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError):
+        graphed(data[:4], t, torch.randn_like(data[:4]))
+    assert state.step == 0 and state.optimizer.count == 0

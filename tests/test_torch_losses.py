@@ -139,14 +139,6 @@ def test_timestep_samplers():
     np.testing.assert_array_equal(t[half:].numpy(), (100 - t[:128 - half] - 1).numpy())
 
 
-def test_pidm_loss_refuses_the_ddim_sampler():
-    x = torch.zeros(2, 4, 4, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tl.pidm_loss(ts.create_schedule(10), x, torch.zeros(2, dtype=torch.long), x,
-                     denoise_fn=lambda a, b: a, weights=tl.LossWeights(),
-                     x0_sampler=lambda *a: None)
-
-
 def _small_unet(seed: int):
     """A random small Flax UNet (biases and norms drawn too) and the port's
     copy of it."""

@@ -231,8 +231,6 @@ def test_metrics_log_keeps_earlier_rows_across_a_resume(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(gov_eqs="mechanics"), "item 8"),
-    (dict(residual_grad_guidance=True), "item 6"),
-    (dict(x0_estimation="sample"), "item 5"),
 ])
 def test_driver_refuses_unported_options(kw, item):
     cfg = RunConfig(**{"compute_dtype": "float32", **kw})
