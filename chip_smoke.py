@@ -1194,7 +1194,8 @@ def k4_phase(dev, randn) -> tuple[dict, dict]:
                         if sc is None:
                             sc = sh = torch.zeros(b, co, device=dev)
                         wflat = cb.flatten_weight(w, dtype)
-                        saved = cb.launch_forward(x, wflat, bias, gamma, beta, sc, sh, p)[1:]
+                        saved = cb.launch_forward(x, wflat, bias, gamma, beta, sc, sh, p,
+                                                   for_backward=True)[1:]
                         b_ms, b_by = bound_ms(*k4_work(b, p, ci, co, film, elt), peak)
                         bb_ms, bb_by = bound_ms(*k4_bwd_work(b, p, ci, co, film, elt), peak)
                         with torch.no_grad():

@@ -60,16 +60,18 @@ _SIGNATURES = {
     "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # x, out, a, b, partials, B, N, C, G, S, eps, stream (K5)
     "pidm_gn_film_silu_packed": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
-    # x, wflat, bias, gamma, beta, scale, shift, out, z, partials, stats, B, Ci, Co, P, G,
-    # eps, bf16, stream (K4)
-    "pidm_conv_gn_film_silu": ([_P] * 11 + [_I] * 5 + [_F, _I, _P], _I),
-    # N -> pixel tiles of K4's statistics partials
-    "pidm_conv_gn_film_silu_tiles": ([_I], _I),
+    # x, w, bias, gamma, beta, scale, shift, out, z, stats, B, Ci, Co, P, G, eps, k, smem,
+    # bf16, stream (K4)
+    "pidm_conv_gn_film_silu": ([_P] * 10 + [_I] * 5 + [_F] + [_I] * 3 + [_P], _I),
     # x, wdx, gamma, beta, scale, shift, dy, z, stats, dx, dw, dbias, dgamma, dbeta,
-    # dscale, dshift, dz, work, B, Ci, Co, P, G, bf16, stream
-    "pidm_conv_gn_film_silu_bwd": ([_P] * 18 + [_I] * 6 + [_P], _I),
-    # B, N, Ci, Co -> floats of workspace
-    "pidm_conv_gn_film_silu_bwd_workspace": ([_I] * 4, _L),
+    # dscale, dshift, dz, work, B, Ci, Co, P, G, k, splits, smem_dz, smem_dw, smem_dx,
+    # bf16, stream
+    "pidm_conv_gn_film_silu_bwd": ([_P] * 18 + [_I] * 11 + [_P], _I),
+    # B, P, Ci, Co, G, bf16 -> floats of workspace
+    "pidm_conv_gn_film_silu_bwd_workspace": ([_I] * 6, _L),
+    # k, smem, bf16 -> clusters the card holds at once (K4 fwd, bwd dz)
+    "pidm_conv_gn_film_silu_max_clusters": ([_I] * 3, _I),
+    "pidm_conv_gn_film_silu_bwd_max_clusters": ([_I] * 3, _I),
 }
 
 

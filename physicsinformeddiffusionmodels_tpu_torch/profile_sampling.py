@@ -30,9 +30,8 @@ GROUPS = (
     ("K2 group norm bwd", ("gn_bwd",)),
     ("K1 linear attention", ("lab_fwd",)),
     ("K2 group norm", ("gn_fwd_kernel",)),
-    ("K4 conv block bwd", ("conv_bwd_dz_kernel", "conv_bwd_params_kernel", "conv_dw_kernel",
-                           "conv_dw_reduce_kernel", "conv_dx_kernel")),
-    ("K4 conv block", ("conv_fwd_kernel", "conv_stats_kernel", "conv_apply_kernel")),
+    ("K4 conv block bwd", ("k4_bwd_dz_kernel", "k4_bwd_dw_kernel", "k4_bwd_dx_kernel")),
+    ("K4 conv block", ("k4_fwd_kernel",)),
     ("convolutions", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
                       "winograd", "fft")),
     ("matmuls", ("gemm", "cutlass", "cublas", "matmul")),

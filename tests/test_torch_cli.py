@@ -53,7 +53,7 @@ def test_port_imports_nothing_of_jax():
                  "training.trainer", "diffusion.losses", "profile_attn", "profile_gn",
                  "utils.timing", "utils.viz", "ops.conv_block", "diffusion.sampling",
                  "diffusion.schedule", "physics.darcy", "sample_eval", "config",
-                 "profile_training"):
+                 "profile_training", "profile_k4"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 33
     assert report["banned"] == []

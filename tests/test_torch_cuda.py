@@ -802,32 +802,169 @@ def test_conv_block_backward_matches_plain(cuda, p, ci, co, dtype):
     _check_k4_backward(cuda, p, ci, co, dtype)
 
 
-# one-line breaks of K4, each of which a check above must catch:
-# name -> (file, text replaced, replacement, the check that must fail)
+# one-line breaks of K4, each of which a check above must catch, at the
+# ragged shape (24, 64, 32), where a row spans a cluster of 2 blocks, or at
+# (13, 16, 48), whose odd P has a column of padding in every row of the
+# staged window: name -> (file, text replaced, replacement, the check, the
+# dtypes it breaks, the shape). The conv's column masks are the staged
+# window's zero border, which the forward's conv and dx's conv over dz
+# share: the same break is caught by the forward's check and the
+# backward's.
+_BF16_RIGHT_MASK = ("conv_tile.cuh", "const bool ok1 = ok && col + 1 < P;", "const bool ok1 = ok;")
+_FP32_RIGHT_MASK = ("conv_tile.cuh", "const bool ok = row_ok && col0 + e >= 0 && col0 + e < P;",
+                    "const bool ok = row_ok && col0 + e >= 0 && col0 + e < P + 1;")
 K4_MUTANTS = {
-    "forward drops the dc = +1 column mask": (
-        "conv_tile.cuh", "ok = idx >= 0 && idx < N && xc >= 0 && xc < P;",
-        "ok = idx >= 0 && idx < N && xc >= 0;", "forward"),
-    "dx drops the column mask on dz": (
-        "conv_tile.cuh", "ok = idx >= 0 && idx < N && zc >= 0 && zc < P;",
-        "ok = idx >= 0 && idx < N;", "backward"),
+    "forward drops the right column mask (bf16 window)": (
+        *_BF16_RIGHT_MASK, "forward", ("bf16",), (13, 16, 48)),
+    "forward drops the right column mask (fp32 window)": (
+        *_FP32_RIGHT_MASK, "forward", ("fp32",), (13, 16, 48)),
+    "dx drops the column mask on dz (bf16 window)": (
+        *_BF16_RIGHT_MASK, "backward", ("bf16",), (13, 16, 48)),
+    "dx drops the column mask on dz (fp32 window)": (
+        *_FP32_RIGHT_MASK, "backward", ("fp32",), (13, 16, 48)),
     "dscale left at zero": (
-        "conv_block_bwd.cu", "dscale[b * Co + c] = fmaf(ga, a1, be * a0);",
-        "dscale[b * Co + c] = 0.f;", "backward"),
+        "conv_block_bwd.cu", "dscale[bc] = fmaf(gamma[c], r1[c], beta[c] * r0[c]);",
+        "dscale[bc] = 0.f;", "backward", ("fp32", "bf16"), (24, 64, 32)),
+    # the row's statistics merged from the second block of its cluster on
+    "merge skips a rank's partial": (
+        "conv_block.cu", "pn[p] = p < k ? rp[3 * gi] : 0.f,",
+        "pn[p] = p < k && p > 0 ? rp[3 * gi] : 0.f,", "forward", ("fp32", "bf16"), (24, 64, 32)),
+    # the window's first row (the halo above the block's rows) left zero
+    "halo row of the staged window left unloaded (bf16)": (
+        "conv_tile.cuh", "const bool ok = it < total && row >= 0 && row < P && col < P && c < cin;",
+        "const bool ok = it < total && rr > 0 && row >= 0 && row < P && col < P && c < cin;",
+        "forward", ("bf16",), (24, 64, 32)),
+    "halo row of the staged window left unloaded (fp32)": (
+        "conv_tile.cuh", "const bool row_ok = row >= 0 && row < P && c0 + c < cin;",
+        "const bool row_ok = rr > 0 && row >= 0 && row < P && c0 + c < cin;", "forward",
+        ("fp32",), (24, 64, 32)),
+    "last dW partial dropped": (
+        "conv_block_bwd.cu", "for (int sp = l; sp < splits; sp += 4) s += part[sp * e_dw + e];",
+        "for (int sp = l; sp < splits - 1; sp += 4) s += part[sp * e_dw + e];", "backward",
+        ("fp32", "bf16"), (24, 64, 32)),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mutant", sorted(K4_MUTANTS))
 def test_conv_block_checks_fail_a_broken_kernel(cuda, monkeypatch, tmp_path, mutant):
-    filename, old, new, check = K4_MUTANTS[mutant]
+    from physicsinformeddiffusionmodels_tpu_torch.ops.conv_block import k4_plan
+
+    assert k4_plan(4, 24, 64, 32, 4).k == 2
+    filename, old, new, check, dtypes, (p, ci, co) = K4_MUTANTS[mutant]
     with _patched_kernels(monkeypatch, tmp_path, filename, old, new):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
+            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
             with pytest.raises(AssertionError):
                 if check == "forward":
-                    _check_k4(cuda, 24, 64, 32, True, dtype)
+                    _check_k4(cuda, p, ci, co, True, dtype)
                 else:
-                    _check_k4_backward(cuda, 24, 64, 32, dtype)
+                    _check_k4_backward(cuda, p, ci, co, dtype)
+
+
+# shapes off the UNet's path that the kernels take: an image whose tiles
+# outnumber a cluster (each block computes its tiles twice), P not a
+# multiple of 4 or 8, Co a multiple of 16 but not of 32, Ci = 16
+K4_OFF_PATH_SHAPES = [(100, 32, 32), (13, 16, 48), (7, 16, 16), (30, 48, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("p,ci,co", K4_OFF_PATH_SHAPES)
+def test_conv_block_kernels_off_the_path(cuda, p, ci, co, dtype):
+    from physicsinformeddiffusionmodels_tpu_torch.ops.conv_block import k4_plan
+
+    if p == 100:
+        assert not k4_plan(2, p, ci, co, 4).resident
+    _check_k4(cuda, p, ci, co, True, dtype, b=2)
+    _check_k4_backward(cuda, p, ci, co, dtype, b=2)
+
+
+def _k4_outputs(cuda, args, p, dy):
+    """out and the seven gradients of <K4(*args), dy>, through the kernels."""
+    out, grads = _grads(lambda *a: conv_gn_film_silu_cm(*a, p), args, dy)
+    return [out.detach(), *grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_conv_block_kernels_repeat_bit_for_bit(cuda, dtype):
+    """At the level-0 shape, B=64 (a row on a cluster of 8, several waves of
+    clusters): a second and third call give the first's out and gradients
+    bit for bit (fixed-order sums, no atomics)."""
+    b, p, ci, co = 64, 64, 32, 32
+    args = _k4_args(cuda, b, p, ci, co, True, dtype)
+    dy = torch.randn(b, co, p * p, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    first = _k4_outputs(cuda, args, p, dy)
+    for call in (1, 2):
+        for name, g, f in zip(("out",) + K4_GRADS, _k4_outputs(cuda, args, p, dy), first):
+            assert torch.equal(g, f), f"call {call}: {name} differs from the first call's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("p,ci,co", K4_SHAPES)
+def test_conv_block_grad_off_and_grad_on_forwards_agree(cuda, p, ci, co, dtype):
+    """The forward with grad off (no z written) and the autograd node's
+    forward (fp32: z kept for the backward) give the same out bit for bit."""
+    args = _k4_args(cuda, 4, p, ci, co, True, dtype)
+    with torch.no_grad():
+        off = conv_gn_film_silu_cm(*args, p)
+    before = conv_gn_film_silu_cm.launches
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    on = conv_gn_film_silu_cm(*leaves, p)
+    assert on.grad_fn is not None and conv_gn_film_silu_cm.launches == before + 1
+    assert torch.equal(on.detach(), off)
+
+
+@pytest.mark.cuda
+def test_conv_block_plan_matches_the_library(cuda):
+    """The CUDA side's backward workspace is the wrapper's plan's, and the
+    card holds at least one cluster of each path plan."""
+    from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+    from physicsinformeddiffusionmodels_tpu_torch.ops import conv_block as cb
+
+    lib = _build.library()
+    for p, ci, co in K4_SHAPES + K4_OFF_PATH_SHAPES + [(32, 128, 32), (32, 64, 64)]:
+        for b in (4, 64):
+            for bf16 in (False, True):
+                elt = 2 if bf16 else 4
+                plan = cb.k4_plan(b, p, ci, co, elt, backward=True)
+                floats = lib.pidm_conv_gn_film_silu_bwd_workspace(b, p, ci, co, 8, int(bf16))
+                assert cb.backward_buffers(plan, b, p, ci, co, torch.float32)["work"][0] == (
+                    floats,)
+                assert cb.max_clusters(plan, bf16, True) >= 1
+                assert cb.max_clusters(cb.k4_plan(b, p, ci, co, elt), bf16, False) >= 1
+
+
+@pytest.mark.cuda
+def test_k4_kernels_multiply_bf16_on_the_tensor_cores_and_fp32_in_fp32(cuda):
+    """K4's bf16 kernels that multiply (the forward's conv, dW, dx) hold
+    tensor-core instructions (HMMA, from mma.sync); its fp32 ones hold none
+    (FFMA in full fp32, TF32 off), nor does the elementwise dz kernel."""
+    import re
+    import shutil
+    import subprocess
+
+    from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build()[0])], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            hmma[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            hmma[name] += 1
+    k4 = {n: count for n, count in hmma.items() if "k4_" in n and "k4_bwd_dz" not in n}
+    fp32 = [count for n, count in k4.items() if "nv_bfloat16" not in n]
+    bf16 = [count for n, count in k4.items() if "nv_bfloat16" in n]
+    dz = [count for n, count in hmma.items() if "k4_bwd_dz" in n]
+    assert len(fp32) == 3 and len(bf16) == 3 and len(dz) == 4, sorted(hmma)
+    assert not any(fp32) and all(bf16) and not any(dz), k4
 
 
 @pytest.mark.cuda
