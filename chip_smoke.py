@@ -65,7 +65,9 @@ the script exits non-zero:
      corrections alone): residual median in the same range, launches K1
      800 and K2 3800 (the corrections call no model), samples that differ
      from phase 6's.
-Phases 9 to 15 share one temporary directory with phase 9's data.
+Phases 9 to 22 share one temporary directory with phase 9's data. Phases
+11, 20 and 21 need none of it, nor a draw of the phases' shared generator:
+they run after phase 8, while the background jobs make 9a's and 19a's sets.
  12. the bf16 backward kernels of K1, K2 and K3 against torch autograd
      through their plain versions on the same bf16 input, at every path
      shape (and the ragged ones) at B=4 and B=64: dx within BF16_DX_TOL of
@@ -152,12 +154,31 @@ Phases 9 to 15 share one temporary directory with phase 9's data.
      ``sample_eval``'s mechanics sweep of that checkpoint, one batch of 6 a
      test level: the five CSVs a level, every metric finite, launches
      counted, samples/s and PCG seconds a batch.
+ 20. the toy study at the JAX driver's full width (``ConditionalModel(2, 100,
+     128)``, B=128): (a) the forward, then one fp32 loss and its gradients
+     for each prediction mode (x0, eps, mu) and x0 estimate (mean, sample),
+     card vs CPU (9b's rules); (b) the ``train_toy`` CLI on the card for
+     TOY_EPOCHS epochs with its 1000-sample pass: steps/s, samples/s, the
+     sample residual, every logged loss finite. The toy runs no kernel.
+ 21. the batched SIMP (``data/mechanics_generator_gpu.py``): (a) card vs CPU
+     on the JAX generator tests' P=16 scenarios, 3 iterations (designs
+     within SIMP_CARD_ATOL); (b) 12 iterations against the host SIMP at
+     JAX's tolerances; (c) one full-width batch (SIMP_FULL: B=64, P=64, 30
+     iterations), its fields from the host's exact solve: seconds a batch,
+     CG iterations a SIMP iteration, the largest relres, the fields' mean
+     |K u - f| below MECH_DATA_RESIDUAL_MAX. No kernel.
+ 22. the UNet's circular padding (``bcs='periodic'``), without and with
+     self-conditioning: ``build_model`` at UNet(dim=32, channels=2), 64x64,
+     B=OPTIONS_BATCH, seeded weights, 9a's fields; the forward (with an
+     x_self_cond) and one fp32 step on the periodic Darcy residual, card vs
+     CPU (phase 5's and 9b's rules); K1 and K2 launch counts zeroed before
+     and read after each: 8 and 38 a UNet call, forward and backward.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
 forward and backward on bf16 x (K2's: 36 of a step's 38), on the stage run
 of phase 10 for K3, on ``profile_gn`` for K5, on 15e, and 15f for
 ``bf16_launches``, for K4; K1's and K2's ``mechanics_launches`` on 19d's
-CLI run), error
+CLI run, and their fp32 ``unet_options_launches`` on phase 22's steps), error
 and times (K4's also the default Block's and bf16 ones), the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
@@ -341,6 +362,28 @@ MECH_STEP_BATCH = 2
 MECH_CLI_STEPS, MECH_CHUNK, MECH_TIMED_STEPS = 20, 10, 5
 # the CLI's sample pass: no_samples of the committed run's config
 MECH_CLI_SAMPLES = 4
+# phase 20: the toy study at the JAX driver's full width (ConditionalModel(2,
+# 100, 128), B=128 of 10^4 points, a 1000-sample pass): 20a card vs CPU in
+# each prediction mode and x0 estimate (9b's rules), 20b the CLI for
+# TOY_EPOCHS epochs (epochs 0..TOY_EPOCHS, one sampling pass at epoch 0)
+TOY_MODES = [(m, e) for m in ("x0", "eps", "mu") for e in ("mean", "sample")]
+TOY_EPOCHS = 2
+# phase 21: the batched SIMP. (a) and (b): the scenarios of the JAX
+# package's own generator tests at P=16 (tests/test_mechanics_generator_tpu.py):
+# card vs CPU at 3 SIMP iterations (the designs within SIMP_CARD_ATOL: the
+# float32 CG sums in another order, 3.8e-5 between the port and JAX on the
+# CPU), and 12 iterations against the host SIMP at JAX's tolerances (vf
+# within 2e-3, mean |rho - rho_host| < 0.01, 97% of the binarised design
+# equal); (c) one full-width batch, JAX generate_dataset_tpu's defaults
+SIMP_FAMILIES, SIMP_VF = ("cantilever", "bridge", "double_clamp"), (0.4, 0.5, 0.35)
+SIMP_CARD_ATOL = 2e-4
+SIMP_FULL = dict(batch=64, P=64, n_iter=30)
+# phase 22: the UNet's circular padding, without and with self-conditioning,
+# UNet(dim=32, channels=2) at 64x64, B=16, seeded weights; card vs CPU (the
+# forward within phase 5's 5e-4, one fp32 step on a periodic Darcy residual
+# by 9b's rules); K1 and K2 launched once a UNet call, forward and backward
+OPTIONS_BATCH = 16
+OPTIONS_FWD_LAUNCHES = ((8, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
 
 
 def phase(name: str):
@@ -820,7 +863,8 @@ class DataJobs:
                      "mechanics": [[sys.executable, "-m", f"{port}.generate_mechanics_sets",
                                     "--root", str(tmp / "mechanics"),
                                     *(f"--{k.replace('_', '-')}={v}" for k, v in
-                                      MECH_SETS.items()), "--workers", workers]]}
+                                      MECH_SETS.items()), "--device", "host",
+                                    "--workers", workers]]}
         # niced, so that the phases that drive the card keep their CPU
         self.nice = ["nice", "-n", "10"] if shutil.which("nice") else []
         self.log = tmp / "data_jobs.log"
@@ -1982,6 +2026,234 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args,
     return got[0], got[1], steps_per_s
 
 
+def toy_phase(tmp: Path, dev, smi: str) -> dict:
+    """Phase 20, the toy study: (a) the model's forward, then one fp32 loss
+    and its gradients at B=128 for each prediction mode and x0 estimate,
+    card vs CPU (9b's rules); (b) the ``train_toy`` CLI at full width on the
+    card for TOY_EPOCHS epochs with its 1000-sample pass: steps/s, samples/s,
+    the sample residual, every logged loss finite, and JAX's files.
+    Returns the CLI's rates."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import train_toy
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.toy import ConditionalModel
+    from physicsinformeddiffusionmodels_tpu_torch.physics.toy import sample_hypersphere
+
+    ph = phase("20a toy model and loss, card vs CPU")
+    rng = np.random.default_rng(20)
+    x0 = torch.from_numpy(sample_hypersphere(rng, 128).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 128))
+    noise = torch.from_numpy(rng.standard_normal((128, 2)).astype(np.float32))
+    models = {d: ConditionalModel(seed=20).to(d) for d in (dev, "cpu")}
+    with torch.no_grad():
+        y, y_cpu = models[dev](x0.to(dev), t.to(dev)).cpu(), models["cpu"](x0, t)
+    fwd_err = (y - y_cpu).abs().max().item()
+    if not torch.isfinite(y).all() or fwd_err > 1e-5 * y_cpu.abs().max().item():
+        raise AssertionError(f"20a toy forward: card vs CPU max |diff| {fwd_err:.3e}")
+    worst = {}
+    for mode, estimation in TOY_MODES:
+        cfg = {**train_toy.default_config(), "model_pred_mode": mode, "x0_estimation": estimation}
+        loss_fn = train_toy.build_loss_fn(create_schedule(cfg["n_steps"]), cfg)
+        out = {}
+        for d, args in ((dev, (x0.to(dev), t.to(dev), noise.to(dev))), ("cpu", (x0, t, noise))):
+            loss, _ = loss_fn(models[d], *args)
+            out[d] = loss, torch.autograd.grad(loss, list(models[d].parameters()))
+        held = hold_fp32_step(models[dev], *out[dev], *out["cpu"])
+        worst[f"{mode}/{estimation}"] = f"{held['loss_rel']}, {held['worst_grad_rel']}"
+    done(ph, forward_max_abs_err=f"{fwd_err:.3e}", loss_rel_and_worst_grad_rel=json.dumps(worst))
+
+    ph = phase("20b train_toy CLI at full width (main path)")
+    out_dir = tmp / "toy"
+    res = train_toy.main(["--epochs", str(TOY_EPOCHS), "--name", "smoke",
+                          "--output-dir", str(out_dir), "--device", dev.type])
+    run = out_dir / "smoke"
+    with open(run / "metrics.csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    losses = [float(r["loss"]) for r in rows if r["loss"]]
+    sample = np.loadtxt(run / "csv" / "step_0_sample.csv", delimiter=",")
+    if (len(losses) != TOY_EPOCHS + 1 or not np.isfinite(losses).all()
+            or not np.isfinite(res.residual) or sample.shape != (1000, 2)
+            or not (run / "model" / f"checkpoint_{TOY_EPOCHS}.msgpack").exists()):
+        raise AssertionError(f"20b: losses {losses}, sample residual {res.residual}, "
+                             f"sample {sample.shape}, files {sorted(os.listdir(run))}")
+    rates = {"toy steps/s": res.steps / res.train_seconds,
+             "toy samples/s": res.samples / res.sample_seconds}
+    done(ph, steps=res.steps, train_s=f"{res.train_seconds:.2f}",
+         steps_per_s=f"{rates['toy steps/s']:.2f}", samples=res.samples,
+         sample_s=f"{res.sample_seconds:.3f}", samples_per_s=f"{rates['toy samples/s']:.1f}",
+         sample_residual=f"{res.residual:.4f}", last_loss=f"{losses[-1]:.4f}")
+    print(f"  {smi}", flush=True)
+    return rates
+
+
+def simp_phase(tmp: Path, dev, smi: str) -> dict:
+    """Phase 21, the batched SIMP (``data/mechanics_generator_gpu.py``): (a)
+    card vs CPU at P=16, 3 iterations; (b) 12 iterations against the host
+    SIMP; (c) one full-width batch (SIMP_FULL) through
+    ``generate_mechanics_sets``' set writer on the card, the final exact
+    solves in spawned workers, timed; the set's layout and its fields'
+    residual. Returns its seconds a batch."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import generate_mechanics_sets as tsets
+
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
+        SCENARIO_FAMILIES, MechanicsFEM, simp_topopt)
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
+        GpuSimpGenerator)
+    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
+        MechanicsResidual, split_mechanics_batch)
+
+    def draw(fem, families, rng):
+        fixed, f = np.zeros((len(families), fem.neq), bool), np.zeros((len(families), fem.neq))
+        for b, fam in enumerate(families):
+            fixed[b], f[b] = SCENARIO_FAMILIES[fam](fem, rng)
+        return fixed, f
+
+    ph = phase("21a batched SIMP, card vs CPU (P=16, 3 iterations)")
+    fem16 = MechanicsFEM(16)
+    fixed, f = draw(fem16, SIMP_FAMILIES, np.random.default_rng(21))
+    vf = np.array(SIMP_VF)
+    out = {}
+    for d in (dev, "cpu"):
+        gen = GpuSimpGenerator(16, n_iter=3, device=d)
+        rho, rel = gen.optimize(gen.scenarios_from_host(fixed, f, vf))
+        out[d] = rho.cpu(), rel.cpu(), gen.cg_iterations
+    (rho, rel, its), (rho_cpu, rel_cpu, its_cpu) = out[dev], out["cpu"]
+    err = (rho - rho_cpu).abs().max().item()
+    if (err > SIMP_CARD_ATOL or (rel > 1e-4).any() or (rel_cpu > 1e-4).any()
+            or np.abs(rho.mean(dim=1).numpy() - vf).max() > 2e-3):
+        raise AssertionError(f"21a: designs card vs CPU max |diff| {err:.3e}, relres "
+                             f"{rel.numpy()} / {rel_cpu.numpy()}")
+    done(ph, rho_max_abs_diff=f"{err:.3e}", cg_iterations_card="/".join(map(str, its)),
+         cg_iterations_cpu="/".join(map(str, its_cpu)))
+
+    ph = phase("21b batched SIMP on the card against the host SIMP (12 iterations)")
+    gen = GpuSimpGenerator(16, n_iter=12, cg_tol=1e-8, cg_maxiter=3000, device=dev)
+    rho, rel = gen.optimize(gen.scenarios_from_host(fixed, f, vf))
+    rho = rho.cpu().numpy()
+    stats = []
+    for b in range(len(vf)):
+        host = simp_topopt(fem16, float(vf[b]), f[b], fixed[b], n_iter=12)
+        stats.append((abs(rho[b].mean() - vf[b]), np.abs(rho[b] - host).mean(),
+                      np.mean((rho[b] > 0.5) == (host > 0.5))))
+        if stats[-1][0] > 2e-3 or stats[-1][1] >= 0.01 or stats[-1][2] <= 0.97:
+            raise AssertionError(f"21b: design {b}: |vf error| {stats[-1][0]:.2e}, mean "
+                                 f"|rho - host| {stats[-1][1]:.3e}, binary agreement "
+                                 f"{stats[-1][2]:.3f}")
+    if (rel.cpu() >= 1e-3).any():
+        raise AssertionError(f"21b: relres {rel.cpu().numpy()}")
+    done(ph, vf_err_max=f"{max(s[0] for s in stats):.2e}",
+         mean_abs_diff_max=f"{max(s[1] for s in stats):.3e}",
+         binary_agreement_min=f"{min(s[2] for s in stats):.4f}")
+
+    c = SIMP_FULL
+    ph = phase(f"21c batched SIMP, one full-width batch (B={c['batch']}, P={c['P']}, "
+               f"{c['n_iter']} iterations) through generate_mechanics_sets' set writer")
+    out = tmp / "simp" / "train" / "fields"
+    gen = GpuSimpGenerator(c["P"], n_iter=c["n_iter"], device=dev)
+    workers = min(8, os.cpu_count() or 1)
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        pool.submit(int, 0).result()  # the workers are up before the clock starts
+        t0 = time.perf_counter()
+        tsets.generate_set(MechanicsFEM(c["P"]), out, c["batch"], tsets.IN_DIST_FAMILIES,
+                           tsets.IN_DIST_VF, np.random.default_rng((0, 0)), n_iter=c["n_iter"],
+                           pool=pool, gen=gen, batch=c["batch"])
+        seconds = time.perf_counter() - t0
+    files = sorted(out.glob("*.npy"), key=lambda q: int(q.stem))
+    if [q.stem for q in files] != [str(i) for i in range(c["batch"])] or len(
+            (out / "scenarios.csv").read_text().splitlines()) != c["batch"] + 1:
+        raise AssertionError(f"21c: the set holds {[q.name for q in files]}")
+    fields = np.stack([np.load(q) for q in files])
+    mb = split_mechanics_batch(torch.as_tensor(fields, device=dev))
+    rho_e = mb.solution[:, :-1, :-1, 2].reshape(c["batch"], -1)
+    res = MechanicsResidual(c["P"], device=dev).residual_from_fields(mb.solution[..., :2], rho_e,
+                                                                     mb.bcs)[0]
+    res_b = res.abs().mean(dim=1)
+    its = gen.cg_iterations
+    vf_err = (mb.conditioning[:, 0, 0, 0] - rho_e.mean(dim=1)).abs().max().item()
+    if not torch.isfinite(res_b).all() or res_b.max().item() > MECH_DATA_RESIDUAL_MAX:
+        raise AssertionError(f"21c: the fields' mean |r| up to {res_b.max().item():.3e}")
+    done(ph, seconds_a_batch=f"{seconds:.2f}", workers=workers,
+         cg_iterations_a_simp_iteration=f"{np.mean(its[:-1]):.1f}", cg_iterations_max=max(its),
+         relres_max=f"{gen.relres.max().item():.3e}",
+         fields_mean_abs_residual_max=f"{res_b.max().item():.3e}", vf_channel_err=f"{vf_err:.1e}")
+    print(f"  {smi}", flush=True)
+    return {"simp s a batch": seconds}
+
+
+def unet_options_phase(tmp: Path, dev, smi: str) -> tuple:
+    """Phase 22: ``build_model`` of a periodic run (circular padding), with
+    and without self-conditioning, UNet(dim=32) at 64x64 and
+    B=OPTIONS_BATCH, seeded weights, on 9a's fields: the forward (with an
+    x_self_cond) card vs CPU, then one fp32 train step on the periodic Darcy
+    residual card vs CPU (9b's rules), launch counts zeroed before and read
+    after each. Returns the K1 and K2 launches of the step runs."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
+
+    data = load_darcy_dataset(tmp / "train").stacked()
+    rng = np.random.default_rng(22)
+    b = OPTIONS_BATCH
+    batch = torch.from_numpy(data[rng.integers(0, len(data), b)])
+    t = torch.from_numpy(rng.integers(0, 100, b))
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    self_cond = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    step_launches = [[0] * 4, [0] * 4]
+    for sc in (False, True):
+        name = "circular" + (" + self-conditioning" if sc else "")
+        ph = phase(f"22 UNet options: {name}, card vs CPU")
+        cfg = RunConfig(bcs="periodic", self_condition=sc, compute_dtype="float32")
+        torch.manual_seed(22)
+        model_cpu = build_model(cfg).train()
+        model = build_model(cfg).to(dev).train()
+        model.load_state_dict(model_cpu.state_dict())
+        kw = (lambda d: {"x_self_cond": self_cond.to(d)}) if sc else (lambda d: {})
+        zero_launch_counts()
+        with torch.no_grad():
+            y = model(x.to(dev), t.to(dev), **kw(dev))
+            torch.cuda.synchronize()
+            fwd_counts = launch_counts()
+            y_cpu = model_cpu(x, t, **kw("cpu"))
+        err = (y.cpu() - y_cpu).abs().max().item()
+        if fwd_counts != OPTIONS_FWD_LAUNCHES or not torch.isfinite(y).all() or err > 5e-4:
+            raise AssertionError(f"22 {name}: forward card vs CPU max |diff| {err:.3e}, "
+                                 f"launches {fwd_counts} (want {OPTIONS_FWD_LAUNCHES})")
+        sched = create_schedule(cfg.diff_steps)
+        out = {}
+        zero_launch_counts()
+        for d, args in ((dev, (batch.to(dev), t.to(dev), noise.to(dev))),
+                        ("cpu", (batch, t, noise))):
+            m = model if d == dev else model_cpu
+            loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, d), cfg)
+            loss, _ = loss_fn(m, *args)
+            out[d] = loss, torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+            if d == dev:
+                torch.cuda.synchronize()
+                counts = launch_counts()
+        want = ((8, 0, 8, 0), (38, 0, 38, 0), (0, 0, 0, 0))
+        if counts != want:
+            raise AssertionError(f"22 {name}: step launches {counts} (want {want})")
+        for k in range(2):
+            step_launches[k] = [a + c for a, c in zip(step_launches[k], counts[k])]
+        done(ph, forward_max_abs_err=f"{err:.3e}",
+             **hold_fp32_step(model, *out[dev], *out["cpu"]), launches=counts[:2])
+        del model, model_cpu
+    print(f"  {smi}", flush=True)
+    return tuple(tuple(r) for r in step_launches)
+
+
 def corrected_sampling_phase(dev, plain_summary: dict) -> None:
     """Phase 11, against phase 6's ``sample_eval`` summary."""
     import torch
@@ -2173,7 +2445,14 @@ def main() -> int:
                     group_norm_film_silu_plain, k2_args, MECHANICS_DOWN_CALLS, backward=True)
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
-    steps_per_s = {}
+    # phases 11, 20 and 21 need none of 9a's data (nor a draw of ``gen``):
+    # they run while the background jobs make it
+    ph = phase("11 corrected sampling")
+    corrected_sampling_phase(dev, summary)
+    done(ph)
+    steps_per_s = toy_phase(Path(data_tmp.name), dev, smi)
+    steps_per_s.update(simp_phase(Path(data_tmp.name), dev, smi))
+
     with data_tmp as tmp:
         (k1["launches"], k1b["launches"], k2["launches"], k2b["launches"]), steps_per_s["9d"] = \
             train_phase(Path(tmp), dev, smi, jobs)
@@ -2183,10 +2462,6 @@ def main() -> int:
         done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}",
              bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
              launches=f"{k3['launches']}/{k3b['launches']}")
-
-        ph = phase("11 corrected sampling")
-        corrected_sampling_phase(dev, summary)
-        done(ph)
 
         ph = phase("12 bf16 backward kernels")
         ragged = [(100, 32), (33, 64)]
@@ -2237,6 +2512,10 @@ def main() -> int:
         for entry, counts in ((k1f16, mech_k1[1]), (k1b16, mech_k1[3]), (k2f16, mech_k2[1]),
                               (k2b16, mech_k2[3])):
             entry["mechanics_launches"] = counts
+        opt_k1, opt_k2 = unet_options_phase(Path(tmp), dev, smi)
+        for entry, counts in ((k1, opt_k1[0]), (k1b, opt_k1[2]), (k2, opt_k2[0]),
+                              (k2b, opt_k2[2])):
+            entry["unet_options_launches"] = counts
         print("  training steps/s (main paths; graph: 18b): " + json.dumps(
             {k: f"{v:.3f}" for k, v in steps_per_s.items()}), flush=True)
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)

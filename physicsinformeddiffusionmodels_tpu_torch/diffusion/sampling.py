@@ -1,8 +1,10 @@
 """Ancestral (DDPM) sampling (port of ``diffusion/sampling.py``).
 
-The x0-prediction sampler with the noise suppressed at the last step, which
-is how the Darcy study samples, with the inference-time options of the JAX
-sampler: Imagen-style dynamic thresholding, CoCoGen residual corrections
+The sampler for a model that predicts x0, eps or the posterior mean mu
+(``pred_mode``), by default with the noise suppressed at the last step
+(``suppress_noise``), which is how the Darcy, mechanics and toy studies
+sample, with the inference-time options of the JAX sampler: Imagen-style
+dynamic thresholding, CoCoGen residual corrections
 (arXiv 2312.10527) on the x0 prediction or on the sampled state in the last
 ``n_correction`` steps plus ``m_correction`` post-steps, and the per-step
 history; and the short DDIM chain that estimates x0 inside the training
@@ -44,22 +46,42 @@ def dynamic_threshold(x: torch.Tensor,
     return torch.clamp(x, -s, s) / s
 
 
+def _derive_x0_mean(sched: DiffusionSchedule, model_out: torch.Tensor, x: torch.Tensor,
+                    t: int, pred_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x0 prediction, posterior mean) of one model output at timestep t,
+    as JAX's ``_derive_x0_eps_mean``; the eps mode's factor (1 - alpha_t) /
+    sqrt(1 - abar_t) in float32, as JAX computes it from its float32
+    tables."""
+    if pred_mode == "x0":
+        return model_out, posterior_mean(sched, model_out, x, t)
+    if pred_mode == "eps":
+        eps_factor = float((np.float32(1.0) - sched.alphas[t]) / sched.one_minus_alphas_bar_sqrt[t])
+        mean = extract(sched.sqrt_recip_alphas, t, x.ndim) * (x - eps_factor * model_out)
+        return predict_start_from_noise(sched, x, t, model_out), mean
+    if pred_mode == "mu":
+        eps_theta = predict_noise_from_mean(sched, x, t, model_out)
+        return predict_start_from_noise(sched, x, t, eps_theta), model_out
+    raise ValueError(f"Unknown pred_mode: {pred_mode!r}")
+
+
 def p_sample_step(sched: DiffusionSchedule, denoise_fn: Callable, x: torch.Tensor, t: int,
-                  z: torch.Tensor | None, *, use_dynamic_threshold: bool = False,
+                  z: torch.Tensor | None, *, pred_mode: str = "x0", suppress_noise: bool = True,
+                  use_dynamic_threshold: bool = False,
                   x0_correction_fn: Optional[Callable] = None,
                   xt_correction_fn: Optional[Callable] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One step x_t -> x_{t-1} with an x0-predicting ``denoise_fn(x, t_batch)``.
-    ``z`` is the step's standard normal noise; it is not used at t = 0.
-    In JAX's order: correct the x0 prediction and recompute the mean, add
+    """One step x_t -> x_{t-1} with ``denoise_fn(x, t_batch)`` predicting x0,
+    eps or the posterior mean (``pred_mode``). ``z`` is the step's standard
+    normal noise; at t = 0 it is not used when ``suppress_noise``. In JAX's
+    order: correct the x0 prediction and recompute the mean from it, add
     the noise, correct the sample, then threshold it. Returns (x_{t-1},
     x0_pred)."""
     tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
-    x0_pred = denoise_fn(x, tb)
+    x0_pred, mean = _derive_x0_mean(sched, denoise_fn(x, tb), x, t, pred_mode)
     if x0_correction_fn is not None:
         x0_pred = x0_correction_fn(x0_pred).to(x0_pred.dtype)
-    mean = posterior_mean(sched, x0_pred, x, t)
-    if t == 0:
+        mean = posterior_mean(sched, x0_pred, x, t)
+    if t == 0 and suppress_noise:
         sample = mean
     else:
         sample = mean + float(np.sqrt(sched.betas[t])) * z  # float32 sqrt of the float32 beta
@@ -82,14 +104,17 @@ class SampleResult(NamedTuple):
 
 
 def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.Tensor,
-                  noise: Noise, *, use_dynamic_threshold: bool = False,
+                  noise: Noise, *, pred_mode: str = "x0", suppress_noise: bool = True,
+                  use_dynamic_threshold: bool = False,
                   save_history: bool = False, correction_fn: Optional[Callable] = None,
                   correction_mode: str = "none", n_correction: int = 0,
                   m_correction: int = 0) -> SampleResult:
-    """T ancestral steps from ``x_init`` (cast to float32).
+    """T ancestral steps from ``x_init`` (cast to float32), ``pred_mode``
+    and ``suppress_noise`` as in ``p_sample_step``.
 
     ``noise`` is a ``torch.Generator`` on x_init's device, or a
-    [T, *x_init.shape] tensor of per-step draws. ``correction_fn`` (x ->
+    [T, *x_init.shape] tensor of per-step draws (a generator draws nothing
+    for t = 0 while the noise is suppressed there). ``correction_fn`` (x ->
     corrected x) is applied while t < ``n_correction``, to the x0 prediction
     (``correction_mode`` 'x0') or to the sampled state ('xt'), and
     ``m_correction`` more times after the loop.
@@ -102,7 +127,7 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
     x = x_init.float()
     history, x0_history = [], []
     for i, t in enumerate(range(T - 1, -1, -1)):
-        if t == 0:
+        if t == 0 and suppress_noise:
             z = None
         elif isinstance(noise, torch.Tensor):
             z = noise[i].to(device=x.device, dtype=x.dtype)
@@ -110,7 +135,8 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
             z = torch.randn(x.shape, generator=noise, device=x.device, dtype=x.dtype)
         corr = use_corr and t < n_correction
         x, x0_pred = p_sample_step(
-            sched, denoise_fn, x, t, z, use_dynamic_threshold=use_dynamic_threshold,
+            sched, denoise_fn, x, t, z, pred_mode=pred_mode, suppress_noise=suppress_noise,
+            use_dynamic_threshold=use_dynamic_threshold,
             x0_correction_fn=correction_fn if corr and correction_mode == "x0" else None,
             xt_correction_fn=correction_fn if corr and correction_mode == "xt" else None)
         if save_history:

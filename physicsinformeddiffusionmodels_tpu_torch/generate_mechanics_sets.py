@@ -1,9 +1,10 @@
-"""Generate the mechanics study's four sets with the host SIMP generator (port
-of the host path of ``scripts/generate_mechanics_sets.py``).
+"""Generate the mechanics study's four sets (port of
+``scripts/generate_mechanics_sets.py``).
 
     python -m physicsinformeddiffusionmodels_tpu_torch.generate_mechanics_sets \\
         --root DIR [--n-train 3072] [--n-valid 64] [--n-test 128] [--n-iter 50] \\
-        [--seed 0] [--pixels-per-dim 64] [--workers W]
+        [--seed 0] [--pixels-per-dim 64] [--device {cuda,cpu,host}] [--batch 64] \\
+        [--workers W]
 
 Writes, as the JAX script lays them out:
 
@@ -13,11 +14,16 @@ Writes, as the JAX script lays them out:
     DIR/test/test_level_2/fields/<i>.npy   the OOD families, vf in [0.25, 0.7]
 
 each with a ``scenarios.csv`` (index, family, vf). One generator, seeded
-with (seed, 0), draws every scenario in order, eight at a time as the JAX
-script's host path does (the last batch of a set draws all eight too), so a
-seed gives the JAX script's files. ``--workers`` runs the SIMP optimisations
-of a batch in that many spawned processes; the draws stay in this process.
-The final solve of each sample is exact whatever ``--n-iter`` is.
+with (seed, 0), draws every scenario in order, a batch at a time (the last
+batch of a set draws a whole batch too), so a seed gives the JAX script's
+files for the same path. ``--device cuda`` (the default, as JAX's default
+is its device) or ``cpu`` optimises the designs of ``--batch`` scenarios at
+once on that torch device (``data/mechanics_generator_gpu.py``); ``host``
+optimises them one by one with the host SIMP, eight scenarios a batch as
+the JAX script's host path draws them. The final solve of each sample is
+exact (host sparse LU) whatever the path and ``--n-iter``. ``--workers``
+runs the host's work, the SIMP (host path) or those final solves (device
+path), in that many spawned processes; the draws stay in this process.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import multiprocessing
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import numpy as np
 
@@ -40,7 +47,11 @@ from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
     simp_topopt,
 )
 
-# scenarios drawn a round, as the JAX script's host path (min(--batch, 8))
+if TYPE_CHECKING:  # the host path's spawned workers import this module without torch
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
+        GpuSimpGenerator)
+
+# scenarios drawn a batch on the host path, as the JAX script's (min(--batch, 8))
 HOST_BATCH = 8
 IN_DIST_VF, OOD_VF = (0.3, 0.6), (0.25, 0.7)
 
@@ -56,28 +67,46 @@ def _simp(args) -> np.ndarray:
     return simp_topopt(_fem(pixels_per_dim), vf, f, fixed, penal=penal, n_iter=n_iter)
 
 
+def _fields(args) -> np.ndarray:
+    """One sample's channels from its design (the exact host solve)."""
+    pixels_per_dim, rho, fixed, f, penal = args
+    return fields_from_design(_fem(pixels_per_dim), rho, fixed, f, penal=penal)
+
+
 def generate_set(fem: MechanicsFEM, out_dir: str | Path, n_samples: int, families: tuple,
                  vf_range: tuple, rng: np.random.Generator, n_iter: int = 50,
-                 penal: float = 3.0, pool: ProcessPoolExecutor | None = None) -> None:
+                 penal: float = 3.0, pool: ProcessPoolExecutor | None = None,
+                 gen: GpuSimpGenerator | None = None, batch: int = HOST_BATCH) -> None:
     """Write ``n_samples`` samples ``<i>.npy`` and ``scenarios.csv`` to
-    ``out_dir``, the families taken round-robin."""
+    ``out_dir``, the families taken round-robin, ``batch`` scenarios drawn a
+    batch; the designs from ``gen`` (the device path) or else the host SIMP.
+    With ``pool``, the host's work of a batch (the SIMP, or on the device
+    path each sample's exact final solve) runs in its processes."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     meta, done, t0 = [], 0, time.time()
     while done < n_samples:
-        nb = min(HOST_BATCH, n_samples - done)
+        nb = min(batch, n_samples - done)
         draws = []
-        for b in range(HOST_BATCH):
+        for b in range(batch):
             fam = families[(done + b) % len(families)]
             fixed, f = SCENARIO_FAMILIES[fam](fem, rng)
             draws.append((fam, fixed, f, rng.uniform(*vf_range)))
-        jobs = [(fem.nels_per_side, float(vf), f, fixed, penal, n_iter)
-                for _, fixed, f, vf in draws[:nb]]
-        rhos = list(pool.map(_simp, jobs)) if pool is not None else [_simp(j) for j in jobs]
-        for b, rho in enumerate(rhos):
-            fam, fixed, f, vf = draws[b]
-            np.save(out / f"{done + b}.npy", fields_from_design(fem, rho, fixed, f, penal=penal))
-            meta.append((done + b, fam, float(vf)))
+        run = pool.map if pool is not None else map
+        if gen is not None:
+            fixed, f, vf = (np.stack([d[i] for d in draws]) for i in (1, 2, 3))
+            rho, relres = gen.optimize(gen.scenarios_from_host(fixed, f, vf))
+            rhos = list(rho[:nb].cpu().numpy().astype(np.float64))
+            print(f"  [{out.parent.name}/{out.name}] batch {done}-{done + nb}: device SIMP "
+                  f"done, relres max {relres.max().item():.2e}", flush=True)
+        else:
+            rhos = list(run(_simp, [(fem.nels_per_side, float(vf), f, fixed, penal, n_iter)
+                                    for _, fixed, f, vf in draws[:nb]]))
+        jobs = [(fem.nels_per_side, rho, fixed, f, penal)
+                for rho, (_, fixed, f, _) in zip(rhos, draws)]
+        for b, sample in enumerate(run(_fields, jobs)):
+            np.save(out / f"{done + b}.npy", sample)
+            meta.append((done + b, draws[b][0], float(draws[b][3])))
         done += nb
     with open(out / "scenarios.csv", "w") as fh:
         fh.write("index,family,vf\n")
@@ -88,8 +117,11 @@ def generate_set(fem: MechanicsFEM, out_dir: str | Path, n_samples: int, familie
 
 def generate_sets(root: str | Path, n_train: int = 3072, n_valid: int = 64, n_test: int = 128,
                   n_iter: int = 50, seed: int = 0, pixels_per_dim: int = 64,
-                  workers: int = 1) -> None:
-    """The train, valid, test_level_1 and test_level_2 sets under ``root``."""
+                  workers: int = 1, device: str = "cuda", batch: int = 64) -> None:
+    """The train, valid, test_level_1 and test_level_2 sets under ``root``,
+    on ``device`` ('cuda' or 'cpu': the batched SIMP; 'host': the host
+    SIMP, ``min(batch, 8)`` scenarios a batch), the host's work in
+    ``workers`` processes."""
     root = Path(root)
     fem = _fem(pixels_per_dim)
     rng = np.random.default_rng((seed, 0))
@@ -97,13 +129,21 @@ def generate_sets(root: str | Path, n_train: int = 3072, n_valid: int = 64, n_te
             (root / "test" / "valid" / "fields", n_valid, IN_DIST_FAMILIES, IN_DIST_VF),
             (root / "test" / "test_level_1" / "fields", n_test, IN_DIST_FAMILIES, IN_DIST_VF),
             (root / "test" / "test_level_2" / "fields", n_test, OOD_FAMILIES, OOD_VF))
-    pool = None
+    gen, pool = None, None
     if workers > 1:
         pool = ProcessPoolExecutor(max_workers=workers,
                                    mp_context=multiprocessing.get_context("spawn"))
+    if device == "host":
+        batch = min(batch, HOST_BATCH)
+    else:
+        from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
+            GpuSimpGenerator)
+
+        gen = GpuSimpGenerator(pixels_per_dim, n_iter=n_iter, device=device)
     try:
         for out, n, families, vf_range in sets:
-            generate_set(fem, out, n, families, vf_range, rng, n_iter=n_iter, pool=pool)
+            generate_set(fem, out, n, families, vf_range, rng, n_iter=n_iter, pool=pool,
+                         gen=gen, batch=batch)
     finally:
         if pool is not None:
             pool.shutdown()
@@ -118,11 +158,17 @@ def main(argv=None) -> None:
     ap.add_argument("--n-iter", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pixels-per-dim", type=int, default=64)
-    ap.add_argument("--workers", type=int, default=1)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu", "host"],
+                    help="cuda (default) or cpu: the batched SIMP on that torch device; "
+                    "host: the host SIMP, eight scenarios a batch")
+    ap.add_argument("--batch", type=int, default=64, help="scenarios a batch")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="processes for the host's work: the SIMP (host path) or the final "
+                    "exact solves (device path)")
     a = ap.parse_args(argv)
     t0 = time.time()
     generate_sets(a.root, a.n_train, a.n_valid, a.n_test, a.n_iter, a.seed, a.pixels_per_dim,
-                  a.workers)
+                  a.workers, a.device, a.batch)
     print(f"All sets done in {time.time() - t0:.1f}s")
 
 

@@ -27,8 +27,14 @@ flag may also be switched on a built model.
 The port builds the Darcy study's ``UNet(dim=32, channels=2)`` and the
 mechanics study's ``UNet(dim=128, channels=10, out_dim=3,
 sigmoid_last_channel=True)``, whose last output channel (the density) goes
-through a sigmoid in the head's dtype: zero padding, no self-conditioning,
-frame attention at F == 1 only. The
+through a sigmoid in the head's dtype, with frame attention at F == 1
+only. ``padding_mode='circular'`` (a run with periodic boundaries) wraps
+every spatial padding of the init conv, the Blocks, Downsample and
+Upsample (a circular pre-pad, a VALID transposed conv, then the crop), as
+JAX's ``_pad2d`` does; the conditioning branch's 3x3 conv stays
+zero-padded, and the channel-major stages run only with zero padding.
+``self_condition`` concatenates ``x_self_cond`` (zeros when None) before x
+on the channel axis, so the init conv takes 2 x ``channels`` inputs. The
 residual-gradient conditioning modules (``emb_conv_0``, ``emb_conv_1``,
 ``combine_conv``) are built in every UNet, so that every checkpoint loads;
 only a call with ``cond`` runs them (``UNet.forward``, and
@@ -64,9 +70,21 @@ def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
 FP32_CONV_SLICE = 128
 
 
-def _conv(x: torch.Tensor, weight, bias, dtype, stride=1, padding=0, transpose=False):
+def _pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Wrap-pad the H and W axes of an NHWC tensor by ``pad`` each side."""
+    if pad == 0:
+        return x
+    x = torch.cat([x[:, -pad:], x, x[:, :pad]], dim=1)
+    return torch.cat([x[:, :, -pad:], x, x[:, :, :pad]], dim=2)
+
+
+def _conv(x: torch.Tensor, weight, bias, dtype, stride=1, padding=0, transpose=False,
+          circular=False):
     """Convolution of an NHWC tensor with an OIHW (or IOHW when transposed)
-    weight, computed in ``dtype`` (None: the input's)."""
+    weight, computed in ``dtype`` (None: the input's); ``circular`` pads by
+    wrapping, then convolves VALID."""
+    if circular:
+        x, padding = _pad2d(x, padding), 0
     dt = dtype or x.dtype
     xc, w, b = x.permute(0, 3, 1, 2).to(dt), weight.to(dt), _cast(bias, dt)
     if transpose:
@@ -132,49 +150,60 @@ class ChannelLayerNorm(nn.Module):
 
 
 class Conv2dPadded(nn.Module):
-    """Zero-padded k x k convolution (Flax 'SAME' for k=3/7 s=1 and k=4 s=2)."""
+    """k x k convolution padded by ``pad`` with zeros (Flax 'SAME' for k=3/7
+    s=1 and k=4 s=2) or, with ``padding_mode='circular'``, by wrapping."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, pad: int = 0,
-                 dtype=None):
+                 dtype=None, padding_mode: str = "zeros"):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, pad)
         self.dtype = dtype
+        self.circular = padding_mode == "circular"
 
     def forward(self, x):
         c = self.Conv_0
-        return _conv(x, c.weight, c.bias, self.dtype, c.stride, c.padding)
+        return _conv(x, c.weight, c.bias, self.dtype, c.stride, c.padding[0],
+                     circular=self.circular)
 
 
 class Downsample(nn.Module):
     """k=4 s=2 p=1 strided conv."""
 
-    def __init__(self, dim: int, dtype=None):
+    def __init__(self, dim: int, dtype=None, padding_mode: str = "zeros"):
         super().__init__()
-        self.Conv2dPadded_0 = Conv2dPadded(dim, dim, 4, 2, 1, dtype)
+        self.Conv2dPadded_0 = Conv2dPadded(dim, dim, 4, 2, 1, dtype, padding_mode)
 
     def forward(self, x):
         return self.Conv2dPadded_0(x)
 
 
 class Upsample(nn.Module):
-    """ConvTranspose k=4 s=2 p=1: doubles the resolution."""
+    """ConvTranspose k=4 s=2 p=1: doubles the resolution. Circular: a wrap
+    pad of 1, a VALID transposed conv, then a crop of 3 each side."""
 
-    def __init__(self, dim: int, dtype=None):
+    def __init__(self, dim: int, dtype=None, padding_mode: str = "zeros"):
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose2d(dim, dim, 4, 2, 1)
         self.dtype = dtype
+        self.circular = padding_mode == "circular"
 
     def forward(self, x):
         c = self.ConvTranspose_0
-        return _conv(x, c.weight, c.bias, self.dtype, 2, 1, transpose=True)
+        if not self.circular:
+            return _conv(x, c.weight, c.bias, self.dtype, 2, 1, transpose=True)
+        xp = _pad2d(x, 1)
+        y = _conv(xp, c.weight, c.bias, self.dtype, 2, 0, transpose=True)
+        crop = (y.shape[1] - 2 * (xp.shape[1] - 2)) // 2
+        return y[:, crop:-crop, crop:-crop].contiguous()
 
 
 class Block(nn.Module):
-    """conv3x3 -> GroupNorm -> (FiLM) -> SiLU: a cuDNN conv then kernel K2 on
-    NHWC x, or with ``cm=P`` all four in kernel K4 on channel-major x [B, C,
-    P*P]."""
+    """conv3x3 -> GroupNorm -> (FiLM) -> SiLU: a cuDNN conv (zero- or
+    wrap-padded) then kernel K2 on NHWC x, or with ``cm=P`` all four in
+    kernel K4 on channel-major x [B, C, P*P] (zero padding only)."""
 
-    def __init__(self, cin: int, cout: int, groups: int = 8, dtype=None):
+    def __init__(self, cin: int, cout: int, groups: int = 8, dtype=None,
+                 padding_mode: str = "zeros"):
         super().__init__()
         self.weight = nn.Parameter(torch.randn(cout, cin, 3, 3) / math.sqrt(9 * cin))
         self.bias = nn.Parameter(torch.zeros(cout))
@@ -182,14 +211,17 @@ class Block(nn.Module):
         self.gn_bias = nn.Parameter(torch.zeros(cout))
         self.groups = groups
         self.dtype = dtype
+        self.circular = padding_mode == "circular"
 
     def forward(self, x, scale_shift=None, cm: int = 0):
         scale, shift = scale_shift if scale_shift is not None else (None, None)
         if cm:
+            if self.circular:
+                raise ValueError("the channel-major Block (K4) pads with zeros only")
             return conv_gn_film_silu_cm(x.to(self.dtype or x.dtype), self.weight, self.bias,
                                         self.gn_scale, self.gn_bias, scale, shift, cm,
                                         self.groups)
-        h = _conv(x, self.weight, self.bias, self.dtype, 1, 1)
+        h = _conv(x, self.weight, self.bias, self.dtype, 1, 1, circular=self.circular)
         return group_norm_film_silu(h, self.gn_scale, self.gn_bias, scale, shift,
                                     groups=self.groups)
 
@@ -200,12 +232,12 @@ class ResnetBlock(nn.Module):
     channel-major on [B, C, P*P]."""
 
     def __init__(self, cin: int, cout: int, time_dim: Optional[int] = None, groups: int = 8,
-                 dtype=None):
+                 dtype=None, padding_mode: str = "zeros"):
         super().__init__()
         if time_dim is not None:
             self.Dense_0 = nn.Linear(time_dim, 2 * cout)
-        self.Block_0 = Block(cin, cout, groups, dtype)
-        self.Block_1 = Block(cout, cout, groups, dtype)
+        self.Block_0 = Block(cin, cout, groups, dtype, padding_mode)
+        self.Block_1 = Block(cout, cout, groups, dtype, padding_mode)
         if cin != cout:
             self.res_kernel = _lecun(cin, cout)
             self.res_bias = nn.Parameter(torch.zeros(cout))
@@ -329,7 +361,8 @@ class UNet(nn.Module):
     ``dtype`` is the compute dtype (None: float32); parameters stay float32.
     ``fp32_head`` runs the final block and 1x1 conv in float32 under a
     bf16 ``dtype``. ``cm_conv_stages`` runs the level stages narrower than
-    128 channels channel-major through K4 (the module docstring).
+    128 channels channel-major through K4; ``padding_mode`` ('zeros' or
+    'circular') and ``self_condition`` as in the module docstring.
     """
 
     def __init__(self, dim: int, channels: int = 2, out_dim: Optional[int] = None,
@@ -337,9 +370,12 @@ class UNet(nn.Module):
                  attn_dim_head: int = 32, init_kernel_size: int = 7, resnet_groups: int = 8,
                  frame_attention: bool = True, dtype: Optional[torch.dtype] = None,
                  fp32_head: bool = False, cm_conv_stages: bool = False,
-                 sigmoid_last_channel: bool = False):
+                 sigmoid_last_channel: bool = False, padding_mode: str = "zeros",
+                 self_condition: bool = False):
         super().__init__()
-        dt, g = dtype, resnet_groups
+        if padding_mode not in ("zeros", "circular"):
+            raise ValueError(f"unknown padding_mode {padding_mode!r}")
+        dt, g, pm = dtype, resnet_groups, padding_mode
         heads = (attn_heads, attn_dim_head)
         time_dim = dim * 4
         self.dim = dim
@@ -347,10 +383,12 @@ class UNet(nn.Module):
         self.fp32_head = fp32_head
         self.cm_conv_stages = cm_conv_stages
         self.sigmoid_last_channel = sigmoid_last_channel
+        self.padding_mode = padding_mode
+        self.self_condition = self_condition
         self.dtype = dtype
 
-        self.init_conv = Conv2dPadded(channels, dim, init_kernel_size, 1,
-                                      init_kernel_size // 2, dt)
+        self.init_conv = Conv2dPadded(channels * (2 if self_condition else 1), dim,
+                                      init_kernel_size, 1, init_kernel_size // 2, dt, pm)
         if frame_attention:
             self.init_frame_attn = PreNormResidual(dim, FrameAttention(dim, *heads, dt))
         self.emb_conv_0 = nn.Conv2d(channels, dim, 1)
@@ -373,47 +411,56 @@ class UNet(nn.Module):
         for i, (din, dout) in enumerate(in_out):
             self.downs.append((
                 dout,
-                add("ResnetBlock", ResnetBlock(din, dout, time_dim, g, dt)),
-                add("ResnetBlock", ResnetBlock(dout, dout, time_dim, g, dt)),
+                add("ResnetBlock", ResnetBlock(din, dout, time_dim, g, dt, pm)),
+                add("ResnetBlock", ResnetBlock(dout, dout, time_dim, g, dt, pm)),
                 add("LinearAttentionBlock", LinearAttentionBlock(dout, *heads, dt)),
-                add("Downsample", Downsample(dout, dt)) if i < len(in_out) - 1 else None,
+                add("Downsample", Downsample(dout, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, time_dim, g, dt)
+        self.mid_block1 = ResnetBlock(mid, mid, time_dim, g, dt, pm)
         self.mid_spatial_attn = PreNormResidual(mid, Attention(mid, *heads, dt))
         if frame_attention:
             self.mid_frame_attn = PreNormResidual(mid, FrameAttention(mid, *heads, dt))
-        self.mid_block2 = ResnetBlock(mid, mid, time_dim, g, dt)
+        self.mid_block2 = ResnetBlock(mid, mid, time_dim, g, dt, pm)
         self.ups = []
         for i, (din, dout) in enumerate(reversed(in_out)):
             self.ups.append((
                 din,
-                add("ResnetBlock", ResnetBlock(2 * dout, din, time_dim, g, dt)),
-                add("ResnetBlock", ResnetBlock(din, din, time_dim, g, dt)),
+                add("ResnetBlock", ResnetBlock(2 * dout, din, time_dim, g, dt, pm)),
+                add("ResnetBlock", ResnetBlock(din, din, time_dim, g, dt, pm)),
                 add("LinearAttentionBlock", LinearAttentionBlock(din, *heads, dt)),
-                add("Upsample", Upsample(din, dt)) if i < len(in_out) - 1 else None,
+                add("Upsample", Upsample(din, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         head_dt = None if fp32_head else dt
-        self.final_block = ResnetBlock(2 * dim, dim, None, g, head_dt)
+        self.final_block = ResnetBlock(2 * dim, dim, None, g, head_dt, pm)
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
         self.head_dtype = head_dt
 
     def _use_cm(self, width: int, x: torch.Tensor) -> bool:
         """Whether a stage of ``width`` channels on NHWC ``x`` runs
-        channel-major (JAX's ``_use_cm``; the port pads with zeros only)."""
+        channel-major (JAX's ``_use_cm``: never with circular padding)."""
         return (self.cm_conv_stages and width < 128 and x.ndim == 4
+                and self.padding_mode == "zeros"
                 and x.shape[1] == x.shape[2] and x.shape[2] <= MAX_P)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, cond: Optional[torch.Tensor] = None,
-                null_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                null_mask: Optional[torch.Tensor] = None,
+                x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, H, W, channels]; time: [B] (or scalar) integer timesteps;
         cond: an optional [B, H, W, channels] conditioning image (the
         residual gradient), which replaces the stem's output by
         ``combine_conv([x, emb(cond)])``; null_mask: an optional [B] bool
         tensor, True where a sample's cond is zeroed (classifier-free
         guidance training). A masked sample still goes through the
-        conditioning branch, with a zero cond; only cond=None bypasses it."""
+        conditioning branch, with a zero cond; only cond=None bypasses it.
+        x_self_cond: with ``self_condition``, the [B, H, W, channels] image
+        put before x on the channel axis (zeros when None); ignored
+        otherwise, as in JAX."""
         time = torch.broadcast_to(torch.atleast_1d(time), (x.shape[0],))
+        if self.self_condition:
+            if x_self_cond is None:
+                x_self_cond = torch.zeros_like(x)
+            x = torch.cat([x_self_cond.to(x.dtype), x], dim=-1)
         x = self.init_conv(x)
         if self.frame_attention:
             x = self.init_frame_attn(x)
@@ -494,8 +541,6 @@ def apply_with_guidance(model: UNet, x: torch.Tensor, time: torch.Tensor, cond: 
 def build_model(cfg, compute_dtype: Optional[str] = None) -> UNet:
     """The study's UNet for a ``RunConfig`` (Darcy or mechanics).
     ``compute_dtype`` overrides ``cfg.compute_dtype``."""
-    if cfg.self_condition or cfg.bcs == "periodic":
-        raise NotImplementedError("self-conditioning and periodic padding are not ported yet")
     name = compute_dtype or cfg.compute_dtype
     if name not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute dtype {name!r}")
@@ -503,4 +548,6 @@ def build_model(cfg, compute_dtype: Optional[str] = None) -> UNet:
     return UNet(dim=cfg.unet_dim, channels=cfg.model_channels, out_dim=cfg.output_channels,
                 frame_attention=cfg.frame_attention, dtype=dtype,
                 fp32_head=cfg.fp32_head and dtype is not None,
-                sigmoid_last_channel=cfg.sigmoid_last_channel)
+                sigmoid_last_channel=cfg.sigmoid_last_channel,
+                padding_mode="circular" if cfg.bcs == "periodic" else "zeros",
+                self_condition=cfg.self_condition)

@@ -25,6 +25,7 @@ condition on the device at the top of every iteration and freezes the state
 once it fails, as ``lax.while_loop`` stops, so the iterates are JAX's; the
 host reads the flag every ``check_every`` iterations to end the loop. On the
 card the ``check_every`` iterations between two reads replay one CUDA graph.
+The loop is ``pcg``, which the batched SIMP generator shares.
 ``topopt_eval_checked`` re-checks each solution's residual in float64 on the
 host and re-solves those above ``tol`` with SciPy's sparse LU.
 
@@ -85,6 +86,62 @@ def split_mechanics_batch(batch: torch.Tensor) -> MechanicsBatch:
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The whole batch's inner product, a 0-d tensor."""
     return (a * b).sum()
+
+
+@torch.no_grad()
+def pcg(matvec, f: torch.Tensor, diag: torch.Tensor, x0: torch.Tensor, tol: float,
+        maxiter: int, check_every: int = 50) -> tuple[torch.Tensor, torch.Tensor]:
+    """Jacobi-preconditioned CG of ``matvec(u) = f`` from ``x0``, as
+    ``jax.scipy.sparse.linalg.cg(matvec, f, x0, tol=tol, maxiter=maxiter, M=r
+    / diag)`` runs it on a [B, n] f: one system, whole-batch inner products,
+    and the stopping test ||r||^2 <= tol^2 ||f||^2 evaluated on the device at
+    the top of every iteration, which freezes the state once it fails (JAX's
+    iterates and count). The host reads that flag every ``check_every``
+    iterations; on the card those iterations replay one CUDA graph. Returns
+    (x, iterations as a 0-d tensor)."""
+    x = x0.clone()
+    r = f - matvec(x)
+    p = r / diag
+    gamma = _vdot(r, p)
+    k = torch.zeros((), dtype=torch.long, device=f.device)
+    atol2 = tol**2 * _vdot(f, f)
+    active = torch.ones((), dtype=torch.bool, device=f.device)
+
+    def iterate():
+        # lax.while_loop's cond, then its body, frozen once cond fails
+        active.copy_((_vdot(r, r) > atol2) & (k < maxiter))
+        ap = matvec(p)
+        alpha = gamma / _vdot(p, ap)
+        r_new = r - alpha * ap
+        z = r_new / diag
+        gamma_new = _vdot(r_new, z)
+        p_new = z + (gamma_new / gamma) * p
+        x.copy_(torch.where(active, x + alpha * p, x))
+        r.copy_(torch.where(active, r_new, r))
+        p.copy_(torch.where(active, p_new, p))
+        gamma.copy_(torch.where(active, gamma_new, gamma))
+        k.add_(active.long())
+
+    graph = None
+    if f.is_cuda:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the capture
+            matvec(p)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(check_every):
+                iterate()
+    for _ in range(-(-maxiter // check_every)):
+        if graph is not None:
+            graph.replay()
+        else:
+            for _ in range(check_every):
+                iterate()
+        if not ((_vdot(r, r) > atol2) & (k < maxiter)).item():
+            break
+    return x, k
 
 
 class MechanicsResidual:
@@ -207,48 +264,7 @@ class MechanicsResidual:
         def matvec(u):
             return torch.where(mask, u, self._Ku(rho_e, torch.where(mask, zero, u)))
 
-        x = torch.zeros_like(f)
-        r = f - matvec(x)
-        p = r / diag
-        gamma = _vdot(r, p)
-        k = torch.zeros((), dtype=torch.long, device=f.device)
-        atol2 = tol**2 * _vdot(f, f)
-        active = torch.ones((), dtype=torch.bool, device=f.device)
-
-        def iterate():
-            # lax.while_loop's cond, then its body, frozen once cond fails
-            active.copy_((_vdot(r, r) > atol2) & (k < maxiter))
-            ap = matvec(p)
-            alpha = gamma / _vdot(p, ap)
-            r_new = r - alpha * ap
-            z = r_new / diag
-            gamma_new = _vdot(r_new, z)
-            p_new = z + (gamma_new / gamma) * p
-            x.copy_(torch.where(active, x + alpha * p, x))
-            r.copy_(torch.where(active, r_new, r))
-            p.copy_(torch.where(active, p_new, p))
-            gamma.copy_(torch.where(active, gamma_new, gamma))
-            k.add_(active.long())
-
-        graph = None
-        if f.is_cuda:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):  # warm-up off the capture
-                matvec(p)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(check_every):
-                    iterate()
-        for _ in range(-(-maxiter // check_every)):
-            if graph is not None:
-                graph.replay()
-            else:
-                for _ in range(check_every):
-                    iterate()
-            if not ((_vdot(r, r) > atol2) & (k < maxiter)).item():
-                break
+        x, k = pcg(matvec, f, diag, torch.zeros_like(f), tol, maxiter, check_every)
         res = matvec(x) - f
         relres = torch.linalg.vector_norm(res, dim=1) / torch.clamp(
             torch.linalg.vector_norm(f, dim=1), min=1e-30)

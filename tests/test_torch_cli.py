@@ -40,6 +40,8 @@ train.parse_args(["--iterations", "2", "--device", "cpu", "--x0-estimation", "sa
                   "--residual-grad-guidance", "--chunk-steps", "20"])
 from physicsinformeddiffusionmodels_tpu_torch import train_mechanics
 train_mechanics.parse_args(["--iterations", "2", "--device", "cpu", "--chunk-steps", "20"])
+from physicsinformeddiffusionmodels_tpu_torch import train_toy
+train_toy.parse_args(["--device", "cpu", "--epochs", "1", "--pred-mode", "mu"])
 print(json.dumps({"modules": names,
                   "banned": sorted(k for k in sys.modules
                                    if k.split(".")[0] in banned and sys.modules[k] is not None)}))
@@ -57,7 +59,8 @@ def test_port_imports_nothing_of_jax():
                  "diffusion.schedule", "physics.darcy", "sample_eval", "config",
                  "profile_training", "profile_k4", "physics.mechanics", "physics.fem_grid",
                  "ops.reshape", "ops.connected_components", "data.mechanics_generator",
-                 "generate_mechanics_sets", "train_mechanics", "profile_sampling"):
+                 "generate_mechanics_sets", "train_mechanics", "profile_sampling",
+                 "physics.toy", "models.toy", "train_toy", "data.mechanics_generator_gpu"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 40
     assert report["banned"] == []

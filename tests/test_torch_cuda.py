@@ -1117,3 +1117,124 @@ def test_a_step_that_cannot_be_captured_raises(cuda):
     with pytest.raises(RuntimeError):
         graphed(data[:4], t, torch.randn_like(data[:4]))
     assert state.step == 0 and state.optimizer.count == 0
+
+
+# the toy study, the batched SIMP and the UNet's circular padding and
+# self-conditioning: the card (kernels, cuDNN, cuBLAS) against the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimation", ["mean", "sample"])
+@pytest.mark.parametrize("pred_mode", ["x0", "eps", "mu"])
+def test_toy_loss_on_the_card_matches_the_cpu(cuda, pred_mode, estimation):
+    """The toy model's forward, then one fp32 loss and its gradients at the
+    driver's B = 128 (all four loss terms on): the loss to 1e-5 relative,
+    each gradient to 1e-3 of its max."""
+    from physicsinformeddiffusionmodels_tpu_torch import train_toy
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.toy import ConditionalModel
+
+    rng = np.random.default_rng(3)
+    x0 = torch.from_numpy(rng.standard_normal((128, 2)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 128))
+    noise = torch.from_numpy(rng.standard_normal((128, 2)).astype(np.float32))
+    config = {**train_toy.default_config(), "c_ineq": 0.1, "lambda_opt": 0.01,
+              "model_pred_mode": pred_mode, "x0_estimation": estimation}
+    loss_fn = train_toy.build_loss_fn(create_schedule(100), config)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = ConditionalModel(seed=1).to(dev)
+        y = model(x0.to(dev), t.to(dev))
+        loss, _ = loss_fn(model, x0.to(dev), t.to(dev), noise.to(dev))
+        out[str(dev)] = y.detach().cpu(), loss.item(), [
+            g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+    (y_cpu, loss_cpu, g_cpu), (y, loss, grads) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(y, y_cpu, rtol=0, atol=1e-5 * y_cpu.abs().max().item())
+    assert abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu), (loss, loss_cpu)
+    for g, gc in zip(grads, g_cpu):
+        assert (g - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_toy_sampling_on_the_card_matches_the_cpu(cuda):
+    """A 10-step pass of 256 points in each prediction mode, the draws given:
+    the card's samples within 1e-4 of the largest CPU one."""
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.sampling import p_sample_loop
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.models.toy import ConditionalModel
+
+    gen = torch.Generator().manual_seed(4)
+    x_init, noise = torch.randn(256, 2, generator=gen), torch.randn(10, 256, 2, generator=gen)
+    for mode in ("x0", "eps", "mu"):
+        res = {}
+        for dev in ("cpu", cuda):
+            with torch.no_grad():
+                res[str(dev)] = p_sample_loop(
+                    create_schedule(10), ConditionalModel(seed=2).to(dev), x_init.to(dev),
+                    noise.to(dev), pred_mode=mode).x.cpu()
+        ref = res["cpu"]
+        torch.testing.assert_close(res[str(cuda)], ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_batched_simp_on_the_card_matches_the_cpu(cuda):
+    """Three SIMP iterations of three P = 16 load cases: the card's designs
+    within 2e-4 of the CPU's (float32 CG sums in another order), each at its
+    volume fraction, the final relres under 1e-4 on both."""
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
+        SCENARIO_FAMILIES, MechanicsFEM)
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
+        GpuSimpGenerator)
+
+    fem, rng = MechanicsFEM(16), np.random.default_rng(21)
+    fixed, f = np.zeros((3, fem.neq), bool), np.zeros((3, fem.neq))
+    for b, fam in enumerate(["cantilever", "bridge", "double_clamp"]):
+        fixed[b], f[b] = SCENARIO_FAMILIES[fam](fem, rng)
+    vf = np.array([0.4, 0.5, 0.35])
+    out = {}
+    for dev in ("cpu", cuda):
+        gen = GpuSimpGenerator(16, n_iter=3, device=dev)
+        rho, rel = gen.optimize(gen.scenarios_from_host(fixed, f, vf))
+        out[str(dev)] = rho.cpu(), rel.cpu()
+    (rho_cpu, rel_cpu), (rho, rel) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(rho, rho_cpu, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(rho.mean(dim=1).numpy(), vf, atol=2e-3)
+    assert (rel < 1e-4).all() and (rel_cpu < 1e-4).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_condition", [False, True], ids=["circular", "circular_selfcond"])
+def test_unet_options_on_the_card_match_the_cpu(cuda, self_condition):
+    """A circular UNet(dim=32) at 64x64, with and without self-conditioning:
+    the forward within 5e-4 (the transplant tolerance) and one step's
+    gradients within 1e-3 of each max, card vs CPU, with K1 (8) and K2 (38)
+    launched in the card's forward."""
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(0)
+    ref_model = UNet(dim=32, channels=2, padding_mode="circular", self_condition=self_condition)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    sc = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    t = torch.tensor([3, 70])
+    dy = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = UNet(dim=32, channels=2, padding_mode="circular",
+                     self_condition=self_condition).to(dev)
+        model.load_state_dict(ref_model.state_dict())
+        before = (linear_attention_block.launches, group_norm_film_silu.launches)
+        y = model(x.to(dev), t.to(dev), x_self_cond=sc.to(dev) if self_condition else None)
+        launched = (linear_attention_block.launches - before[0],
+                    group_norm_film_silu.launches - before[1])
+        params = [p for p in model.parameters() if p.requires_grad]
+        grads = torch.autograd.grad((y * dy.to(dev)).sum(), params, allow_unused=True)
+        out[str(dev)] = y.detach().cpu(), [None if g is None else g.cpu() for g in grads], launched
+    (y_cpu, g_cpu, l_cpu), (y, grads, launched) = out["cpu"], out[str(cuda)]
+    assert launched == (8, 38) and l_cpu == (0, 0)
+    assert (y - y_cpu).abs().max().item() <= 5e-4
+    for g, gc in zip(grads, g_cpu):
+        assert (g is None) == (gc is None)
+        if g is not None:
+            assert (g - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()

@@ -37,7 +37,8 @@ STATS_HEADER = ["Sample Index", "Residuals (abs)", "rel_CE_error", "rel_vf_error
 @pytest.fixture(scope="module")
 def sets(tmp_path_factory):
     root = tmp_path_factory.mktemp("mech_sets")
-    generate_sets(root, n_train=4, n_valid=2, n_test=3, n_iter=1, seed=2, pixels_per_dim=P)
+    generate_sets(root, n_train=4, n_valid=2, n_test=3, n_iter=1, seed=2, pixels_per_dim=P,
+                  device="host")
     return root
 
 

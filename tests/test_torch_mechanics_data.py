@@ -69,7 +69,8 @@ def test_sets_match_the_jax_scripts_host_path(tmp_path):
     SIMP in two worker processes."""
     script = _jax_script()
     sizes = dict(n_train=9, n_valid=2, n_test=3)
-    tsets.generate_sets(tmp_path / "port", **sizes, n_iter=1, seed=4, pixels_per_dim=P, workers=2)
+    tsets.generate_sets(tmp_path / "port", **sizes, n_iter=1, seed=4, pixels_per_dim=P, workers=2,
+                        device="host")
     fem, rng, root = jgen.MechanicsFEM(P), np.random.default_rng((4, 0)), tmp_path / "jax"
     for sub, n, families, vf_range in (
             ("train", sizes["n_train"], jgen.IN_DIST_FAMILIES, (0.3, 0.6)),
@@ -88,7 +89,7 @@ def test_sets_match_the_jax_scripts_host_path(tmp_path):
 
 def test_sets_cli_writes_the_layout(tmp_path):
     tsets.main(["--root", str(tmp_path), "--n-train", "2", "--n-valid", "1", "--n-test", "1",
-                "--n-iter", "1", "--pixels-per-dim", "8"])
+                "--n-iter", "1", "--pixels-per-dim", "8", "--device", "host"])
     for sub, n in (("train", 2), ("test/valid", 1), ("test/test_level_1", 1),
                    ("test/test_level_2", 1)):
         assert NpyFieldDataset(tmp_path / sub / "fields").stacked().shape == (n, 9, 9, 10)

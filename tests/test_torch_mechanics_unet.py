@@ -239,5 +239,9 @@ def test_build_model_makes_the_mechanics_unet():
     model = build_model(cfg)
     assert model.sigmoid_last_channel and model.fp32_head and model.dtype == torch.bfloat16
     assert model.final_conv.out_channels == 3 and model.init_conv.Conv_0.in_channels == 10
-    with pytest.raises(NotImplementedError, match="periodic"):
-        build_model(RunConfig(gov_eqs="mechanics", bcs="periodic"))
+    # the two options no committed run uses (their parity with Flax:
+    # tests/test_torch_unet_options.py)
+    model = build_model(RunConfig(gov_eqs="mechanics", unet_dim=DIM, bcs="periodic",
+                                  self_condition=True))
+    assert model.padding_mode == "circular" and model.self_condition
+    assert model.init_conv.Conv_0.in_channels == 20 and model.init_conv.circular
