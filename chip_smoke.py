@@ -65,9 +65,16 @@ the script exits non-zero:
      corrections alone): residual median in the same range, launches K1
      800 and K2 3800 (the corrections call no model), samples that differ
      from phase 6's.
-Phases 9 to 22 share one temporary directory with phase 9's data. Phases
-11, 20 and 21 need none of it, nor a draw of the phases' shared generator:
-they run after phase 8, while the background jobs make 9a's and 19a's sets.
+The phases run in this order: 1-8, then every other kernel timing (10,
+12, 14, 15ab) on a quiet card; then 20 and 21, which need none of 9a's
+data, while the background jobs make 9a's and 19a's sets; then 9, 13,
+15c-f, 16-19, 22 and 11, sharing one temporary directory with phase 9's
+data; the card vs CPU train steps of 9b, 15e, 16b and 17c, which time
+nothing, wait until after 22. Phase 23's processes start after phase 1,
+join their group during the build and run on the card only after 19d's
+timing, beside 19e, 22, those steps and
+11 (whose samples/s, and 19e's, they share); its timed turns run last,
+on a quiet card.
  12. the bf16 backward kernels of K1, K2 and K3 against torch autograd
      through their plain versions on the same bf16 input, at every path
      shape (and the ragged ones) at B=4 and B=64: dx within BF16_DX_TOL of
@@ -173,12 +180,41 @@ they run after phase 8, while the background jobs make 9a's and 19a's sets.
      x_self_cond) and one fp32 step on the periodic Darcy residual, card vs
      CPU (phase 5's and 9b's rules); K1 and K2 launch counts zeroed before
      and read after each: 8 and 38 a UNet call, forward and backward.
+ 23. the parallel layer (``parallel/``) on PAR_WORLD ranks sharing the card
+     over gloo (NCCL refuses two ranks on one device): two processes of
+     this script, started after phase 1, whose checks run beside 19e,
+     22, the deferred card vs CPU steps and 11: (a) data parallelism, UNet(dim=32) from the 300k EMA weights, one
+     step at B=64 (32 a rank) against the one-process B=64 step on the card,
+     fp32 (9b's rule; the updated weights by PAR_MOVED_TOL's) and bf16 +
+     fp32 head (13a's rule), and fp32 again on a (slice, dp, tp) = (2, 1,
+     1) mesh, K1 8 and K2 38 launches a forward and a backward on each
+     rank; (b) sequence-parallel linear attention, the same UNet on a (dp,
+     tp) = (1, 2) mesh: the forward at B=8 within phase 5's tolerance of
+     the one-process forward, the input's and each parameter's gradient
+     within STEP_GRAD_TOL (SP_LAUNCHES); (c) tensor parallelism, the
+     mechanics UNet at full width, seeded, B=6, bf16 + fp32 head, tp=2 with
+     ``tp_shard_activations``: one step against the one-process step (13a's
+     rule; fp32 beside it by 9b's), K1 8 and K2 38 launches, K2 at each
+     shape of a column-parallel Block (C/2 channels in 4 groups) against
+     its plain version forward and backward, fp32 and bf16, each rank's
+     bytes of parameters, Adam and EMA (at most PAR_STATE_SHARE_MAX of the
+     whole model's) and its peak memory; at the end, on a quiet card, the
+     steps/s of (a)'s fp32 step and (c)'s bf16 step eager in turns, one
+     process and two ranks (the collectives' cost, not a scaling); (d) the
+     training CLI under ``torchrun --standalone --nproc-per-node 1
+     --mesh-dp 1`` (NCCL) for 3 steps on 9a's sets, bf16 + fp32 head,
+     started with the ranks' checks (the ranks and it niced) and ended
+     before their timed turns,
+     and with ``--mesh-tp 2`` and no process group, which must exit
+     non-zero naming torchrun. A rank that fails or hangs fails the phase.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
 forward and backward on bf16 x (K2's: 36 of a step's 38), on the stage run
 of phase 10 for K3, on ``profile_gn`` for K5, on 15e, and 15f for
 ``bf16_launches``, for K4; K1's and K2's ``mechanics_launches`` on 19d's
-CLI run, and their fp32 ``unet_options_launches`` on phase 22's steps), error
+CLI run, their fp32 ``unet_options_launches`` on phase 22's steps, and
+their ``parallel_launches`` on rank 0 of 23a's fp32 step and (the bf16
+entries) of 23c's tensor-parallel step), error
 and times (K4's also the default Block's and bf16 ones), the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 Exits 2 without a result where torch.cuda.is_available() is false.
@@ -188,6 +224,7 @@ from __future__ import annotations
 
 import atexit
 import csv
+import functools
 import json
 import os
 import shutil
@@ -324,7 +361,7 @@ CM_MEDIAN_RTOL = 0.1
 # DDIM_STEPS steps of its training main path, K1 and K2 twice a step
 SAMPLE_RUN = ROOT / "results" / "darcy_sample_100k" / "portable"
 DDIM_MEDIAN_RANGE = (3.91e-3, 1.56e-2)
-DDIM_STEPS, DDIM_BATCH = 50, 16  # 100 until phase 19
+DDIM_STEPS, DDIM_BATCH = 25, 16  # 100 until phase 19, 50 until phase 23
 DDIM_STEP_LAUNCHES = ((16, 0, 16, 0), (76, 0, 76, 0), (0, 0, 0, 0))
 # phase 17: the residual-gradient guidance run (bf16 compute, no fp32 head).
 # Guided fp32 sampling medians within 0.5x-2x the JAX package's own fp32 CPU
@@ -334,13 +371,13 @@ DDIM_STEP_LAUNCHES = ((16, 0, 16, 0), (76, 0, 76, 0), (0, 0, 0, 0))
 # committed medians (4.40e-2, 1.20e-1) are bf16 on a TPU and set no target.
 GUIDED_RUN = ROOT / "results" / "darcy_guided_100k" / "portable"
 GUIDED_JAX_FP32_MEDIANS = {1.0: 1.0531e-2, 3.0: 1.0666e-2}
-GUIDED_STEPS = 50
+GUIDED_STEPS = 25  # 50 until phase 23
 # its training step: one conditioned UNet call, all on bf16 x
 GUIDED_STEP_LAUNCHES = ((8, 8, 8, 8), (38, 38, 38, 38), (0, 0, 0, 0))
 # phase 18: graph-replayed steps against eager steps, bit for bit, with the
 # EMA gate crossed inside the run; then steps/s both ways, in turns (40, 20
-# and 50 until phase 19 came)
-GRAPH_STEPS, GRAPH_EMA_START, GRAPH_TIMED_STEPS = 20, 10, 20
+# and 50 until phase 19 came; 20 and 10 until phase 23)
+GRAPH_STEPS, GRAPH_EMA_START, GRAPH_TIMED_STEPS = 12, 6, 20
 # phase 19: the mechanics study at full width, seeded weights. The sets of
 # the port's SIMP generator: 6 each (a batch), 3 SIMP iterations (the
 # study's sets take 50; the final solve is exact either way)
@@ -384,6 +421,31 @@ SIMP_FULL = dict(batch=64, P=64, n_iter=30)
 # by 9b's rules); K1 and K2 launched once a UNet call, forward and backward
 OPTIONS_BATCH = 16
 OPTIONS_FWD_LAUNCHES = ((8, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
+# phase 23: the parallel layer (parallel/) on PAR_WORLD ranks that share
+# the one card over gloo (NCCL refuses two ranks on one device), each rank
+# a process of this script (``--parallel-rank``), started after phase 1;
+# their checks run after 19d's timing, beside 19e, 22, the deferred
+# card vs CPU steps and 11, their
+# timed turns at the end, on a quiet card. A collective waits at most
+# PAR_COLLECTIVE_S, a rank for the main process or the main process for
+# the ranks PAR_JOIN_S.
+PAR_WORLD, PAR_COLLECTIVE_S, PAR_JOIN_S = 2, 240, 600
+PAR_DARCY_BATCH, PAR_SP_BATCH, PAR_MECH_BATCH = 64, 8, 6
+# a forward and backward of the sequence-parallel UNet: no K1 (its attention
+# is plain PyTorch on each rank's tokens, as in JAX), K2 38 and 38
+SP_LAUNCHES = ((0, 0, 0, 0), (38, 0, 38, 0), (0, 0, 0, 0))
+# Adam's first step moves every entry by about lr whatever the size of its
+# gradient, so an entry whose gradient lies at the rounding of a sum taken
+# in another order may move another way: after one fp32 step, all but
+# PAR_MOVED_SHARE of the weights within PAR_MOVED_TOL x lr of the
+# one-process step's
+PAR_MOVED_TOL, PAR_MOVED_SHARE = 0.05, 1e-3
+# each rank's parameters, Adam moments and EMA at tp=2 (16 B a parameter):
+# at most this share of the whole model's (JAX's rule splits 99.94% of the
+# mechanics UNet's 131.7M parameters)
+PAR_STATE_SHARE_MAX = 0.55
+# timed turns (one process, two ranks, two ranks, one process), steps a turn
+PAR_TIMED = {"darcy": 3, "mechanics": 3}
 
 
 def phase(name: str):
@@ -765,26 +827,28 @@ def step_card_vs_cpu(what: str, dev, ds, cm: bool = False, run: Path = RUN,
          card_s=f"{t_cpu - t_card:.2f}", cpu_s=f"{t_end - t_cpu:.2f}")
 
 
-def hold_fp32_step(model, loss, grads, loss_cpu, grads_cpu) -> dict:
+def hold_fp32_step(model, loss, grads, loss_cpu, grads_cpu, sides=("card", "CPU")) -> dict:
     """An fp32 step's loss and gradients (``model``'s parameters in order;
-    None for an unused one) on the card against the CPU's: the loss within
-    STEP_LOSS_RTOL relative, each gradient within STEP_GRAD_TOL of its
-    largest entry. Returns what ``done`` prints."""
+    None for an unused one) on the card against the CPU's (or, ``sides``,
+    one run against another): the loss within STEP_LOSS_RTOL relative, each
+    gradient within STEP_GRAD_TOL of its largest entry. Returns what
+    ``done`` prints."""
     import torch
 
+    a, b = sides
     rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
     if not np.isfinite(loss.item()) or rel > STEP_LOSS_RTOL:
-        raise AssertionError(f"train step loss card {loss.item():.8e} vs CPU "
+        raise AssertionError(f"train step loss {a} {loss.item():.8e} vs {b} "
                              f"{loss_cpu.item():.8e}: relative {rel:.2e} > {STEP_LOSS_RTOL}")
     worst, compared = 0.0, 0
     for (name, _), g, gc in zip(model.named_parameters(), grads, grads_cpu):
         if (g is None) != (gc is None):
-            raise AssertionError(f"{name}: gradient on one device only")
+            raise AssertionError(f"{name}: gradient on one side only ({a}, {b})")
         if g is None:  # the guidance-conditioning modules, unused but in guided runs
             continue
-        scale, err = gc.abs().max().item(), (g.cpu() - gc).abs().max().item()
+        scale, err = gc.abs().max().item(), (g.cpu() - gc.cpu()).abs().max().item()
         if not torch.isfinite(g).all() or err > STEP_GRAD_TOL * scale:
-            raise AssertionError(f"{name}: card vs CPU gradient max |diff| {err:.3e} > "
+            raise AssertionError(f"{name}: {a} vs {b} gradient max |diff| {err:.3e} > "
                                  f"{STEP_GRAD_TOL} x max |g| {scale:.3e}")
         worst, compared = max(worst, err / max(scale, 1e-30)), compared + 1
     return dict(loss_card=f"{loss.item():.8e}", loss_cpu=f"{loss_cpu.item():.8e}",
@@ -902,11 +966,12 @@ class DataJobs:
         self.thread.join(timeout=60)
 
 
-def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs
+def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list
                 ) -> tuple[tuple[int, int, int, int], float]:
-    """Phase 9; its data stays in ``tmp`` for phases 13 and 15. Returns the
-    launch counts of the main-path run (K1 forward, K1 backward, K2 forward,
-    K2 backward) and its steps/s."""
+    """Phase 9; its data stays in ``tmp`` for phases 13 and 15; 9b's card vs
+    CPU step goes to ``later``. Returns the launch counts of the main-path
+    run (K1 forward, K1 backward, K2 forward, K2 backward) and its
+    steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -930,7 +995,7 @@ def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs
     sched = create_schedule(cfg.diff_steps)
     loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
 
-    step_card_vs_cpu("9b one train step, card vs CPU", dev, ds)
+    later.append(functools.partial(step_card_vs_cpu, "9b one train step, card vs CPU", dev, ds))
 
     ph = phase("9c loss of the 300k EMA weights")
     data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
@@ -1047,11 +1112,13 @@ def bf16_step_phase(ds, dev) -> None:
 
 
 def hold_bf16_step(model, loss, grads, loss32, grads32, loss_cpu, grads_cpu,
-                   loss32_cpu) -> dict:
+                   loss32_cpu, sides=("card", "CPU")) -> dict:
     """A bf16 step (loss and ``model``'s gradients) on the card against the
-    CPU's, beside each side's fp32 step on the same inputs (13a's rule).
-    Returns what ``done`` prints."""
+    CPU's (or, ``sides``, one run against another), beside each side's fp32
+    step on the same inputs (13a's rule). Returns what ``done`` prints."""
     import torch
+
+    a, b = sides
 
     # the fp32 losses agree to STEP_LOSS_RTOL; the bf16 loss lies within
     # STEP_BF16_LOSS x the larger of the two sides' own bf16 rounding (their
@@ -1066,24 +1133,24 @@ def hold_bf16_step(model, loss, grads, loss32, grads32, loss_cpu, grads_cpu,
     rel32 = abs(loss32 - loss32_cpu) / abs(loss32_cpu)
     limit = STEP_BF16_LOSS * max(abs(loss - loss32), abs(loss_cpu - loss32_cpu))
     if not np.isfinite(loss) or rel32 > STEP_LOSS_RTOL or abs(loss - loss_cpu) > limit:
-        raise AssertionError(f"bf16 train step loss card {loss:.8e} vs CPU {loss_cpu:.8e}: "
-                             f"limit {limit:.3e}; fp32 card {loss32:.8e} vs CPU "
+        raise AssertionError(f"bf16 train step loss {a} {loss:.8e} vs {b} {loss_cpu:.8e}: "
+                             f"limit {limit:.3e}; fp32 {a} {loss32:.8e} vs {b} "
                              f"{loss32_cpu:.8e}: relative {rel32:.2e}")
     worst, kept = 0.0, []
     for (name, _), g, g32, gc in zip(model.named_parameters(), grads, grads32, grads_cpu):
         if (g is None) != (gc is None):
-            raise AssertionError(f"{name}: gradient on one device only")
+            raise AssertionError(f"{name}: gradient on one side only ({a}, {b})")
         if g is None:  # the guidance-conditioning modules, unused by this loss
             continue
         if g.dtype != torch.float32 or not torch.isfinite(g).all():
             raise AssertionError(f"{name}: a {g.dtype} gradient, finite "
                                  f"{bool(torch.isfinite(g).all())}")
-        kept.append((g.cpu(), g32.cpu(), gc))
+        kept.append((g.cpu(), g32.cpu(), gc.cpu()))
         k, floor = STEP_BF16_EACH
-        err = (g.cpu() - gc).norm().item()
+        err = (g.cpu() - gc.cpu()).norm().item()
         lim = k * (g - g32).norm().item() + floor * gc.norm().item()
         if err > lim:
-            raise AssertionError(f"{name}: bf16 card vs CPU gradient |diff| {err:.3e} > "
+            raise AssertionError(f"{name}: bf16 {a} vs {b} gradient |diff| {err:.3e} > "
                                  f"{lim:.3e} (L2)")
         worst = max(worst, err / max(lim, 1e-30))
     compared = len(kept)
@@ -1092,7 +1159,7 @@ def hold_bf16_step(model, loss, grads, loss32, grads32, loss_cpu, grads_cpu,
     whole = (g - gc).norm().item()
     whole_lim = k * (g - g32).norm().item() + floor * gc.norm().item()
     if whole > whole_lim:
-        raise AssertionError(f"bf16 card vs CPU, whole gradient |diff| {whole:.3e} > "
+        raise AssertionError(f"bf16 {a} vs {b}, whole gradient |diff| {whole:.3e} > "
                              f"{whole_lim:.3e} (L2)")
     return dict(loss_card=f"{loss:.8e}", loss_cpu=f"{loss_cpu:.8e}",
                 loss_fp32_card=f"{loss32:.8e}", loss_fp32_cpu=f"{loss32_cpu:.8e}",
@@ -1412,12 +1479,14 @@ def k4_phase(dev, randn) -> tuple[dict, dict]:
     return entries[0], entries[1]
 
 
-def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict) -> tuple:
+def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict,
+             later: list) -> tuple:
     """Phases 15c-f on phase 9's data in ``tmp``: the cm UNet's checkpoint
     forward card vs CPU, cm sampling against phase 6's ``plain_summary``,
-    one cm train step card vs CPU, then the cm training main paths, fp32 and
-    bf16 + fp32 head, their steps/s beside 9d's and 13c's (``steps_per_s``).
-    Returns K4's launch counts of the two runs (launch_counts()'s row)."""
+    one cm train step card vs CPU (to ``later``), then the cm training main
+    paths, fp32 and bf16 + fp32 head, their steps/s beside 9d's and 13c's
+    (``steps_per_s``). Returns K4's launch counts of the two runs
+    (launch_counts()'s row)."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -1468,7 +1537,8 @@ def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict) -
 
     ds = load_darcy_dataset(tmp / "train")
     data = torch.as_tensor(ds.stacked(), device=dev)
-    step_card_vs_cpu("15e one cm train step, card vs CPU", dev, ds, cm=True)
+    later.append(functools.partial(step_card_vs_cpu, "15e one cm train step, card vs CPU",
+                                   dev, ds, cm=True))
     counts = []
     for dtype, per_step, what, before in (
             ("float32", CM_FP32_STEP_LAUNCHES, "15e cm training, fp32", "9d"),
@@ -1511,10 +1581,10 @@ def sampling_main_path(what: str, run: Path, out: Path, per_step: tuple, median_
     return summary
 
 
-def ddim_phase(tmp: Path, dev, smi: str) -> float:
+def ddim_phase(tmp: Path, dev, smi: str, later: list) -> float:
     """Phase 16 on phase 9's data in ``tmp``: the DDIM run's sampling, one
-    DDIM train step card vs CPU, then its training main path. Returns that
-    path's steps/s."""
+    DDIM train step card vs CPU (to ``later``), then its training main
+    path. Returns that path's steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -1524,8 +1594,8 @@ def ddim_phase(tmp: Path, dev, smi: str) -> float:
     sampling_main_path("16a DDIM run: sampling (main path)", SAMPLE_RUN, tmp / "eval_ddim",
                        (8, 38, 0), DDIM_MEDIAN_RANGE)
     ds = load_darcy_dataset(tmp / "train")
-    step_card_vs_cpu("16b one DDIM train step, card vs CPU", dev, ds, run=SAMPLE_RUN,
-                     batch_size=DDIM_BATCH)
+    later.append(functools.partial(step_card_vs_cpu, "16b one DDIM train step, card vs CPU",
+                                   dev, ds, run=SAMPLE_RUN, batch_size=DDIM_BATCH))
     cfg, model, _ = sample_eval.load_run(SAMPLE_RUN, compute_dtype="float32", device=dev)
     cfg.compute_dtype = "float32"
     if not (cfg.use_ddim_x0 and cfg.ddim_steps == 0 and cfg.train_batch_size == DDIM_BATCH):
@@ -1540,11 +1610,11 @@ def ddim_phase(tmp: Path, dev, smi: str) -> float:
     return steps_per_s
 
 
-def guidance_phase(tmp: Path, dev, smi: str) -> float:
+def guidance_phase(tmp: Path, dev, smi: str, later: list) -> float:
     """Phase 17 on phase 9's data in ``tmp``: the guided run's conditioned
     forward card vs CPU, guided sampling at scales 1 and 3, one guided train
-    step card vs CPU at B=64 with a mixed null mask, then its training main
-    path in the run's bf16. Returns that path's steps/s."""
+    step card vs CPU at B=64 with a mixed null mask (to ``later``), then its
+    training main path in the run's bf16. Returns that path's steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -1591,8 +1661,8 @@ def guidance_phase(tmp: Path, dev, smi: str) -> float:
          GUIDED_JAX_FP32_MEDIANS.items()}), flush=True)
 
     ds = load_darcy_dataset(tmp / "train")
-    step_card_vs_cpu("17c one guided train step, card vs CPU", dev, ds, run=GUIDED_RUN,
-                     batch_size=TRAIN_BATCH)
+    later.append(functools.partial(step_card_vs_cpu, "17c one guided train step, card vs CPU",
+                                   dev, ds, run=GUIDED_RUN, batch_size=TRAIN_BATCH))
     cfg, model, _ = sample_eval.load_run(GUIDED_RUN, device=dev)
     loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
                                         train.make_physics(cfg, dev), cfg)
@@ -1819,9 +1889,10 @@ def mech_data_phase(root: Path, dev, jobs: DataJobs) -> dict:
     return sets
 
 
-def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args,
-                    jobs: DataJobs) -> tuple[tuple, tuple, dict]:
-    """Phase 19 in ``tmp``, on ``jobs``' mechanics sets. Returns K1's and
+def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
+                    after_timing) -> tuple[tuple, tuple, dict]:
+    """Phase 19 in ``tmp``, on ``jobs``' mechanics sets; ``after_timing()``
+    is called when 19d's steps/s are taken, before 19e. Returns K1's and
     K2's launch counts of 19d's CLI run and the steps/s of 19d."""
     import torch
 
@@ -2000,8 +2071,10 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args,
          graph_over_eager=f"{steps_per_s['19d graph'] / steps_per_s['19d']:.3f}")
     print(f"  {smi}", flush=True)
     del state, graphed, model, data
+    after_timing()
 
-    ph = phase("19e sample_eval mechanics sweep of the CLI's checkpoint")
+    ph = phase("19e sample_eval mechanics sweep of the CLI's checkpoint (beside phase 23's "
+               "ranks: its samples/s are a shared card's)")
     zero_launch_counts()
     summary = sample_eval.evaluate(out / "mech", MECH_BATCH, device="cuda", seed=0,
                                    out=tmp / "mech_eval", test_batches=1, test_data_root=root)
@@ -2254,6 +2327,569 @@ def unet_options_phase(tmp: Path, dev, smi: str) -> tuple:
     return tuple(tuple(r) for r in step_launches)
 
 
+# --- phase 23: the parallel layer --------------------------------------------
+
+def _par_darcy_inputs(b: int, dev) -> tuple:
+    """A seeded batch for the Darcy UNet: fields, t and noise (an equivalence
+    check between meshes; the fields need not be Darcy solutions)."""
+    import torch
+
+    rng = np.random.default_rng(23)
+    x = (0.5 * rng.standard_normal((b, 64, 64, 2))).astype(np.float32)
+    noise = rng.standard_normal(x.shape).astype(np.float32)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(rng.integers(0, 100, b)).to(dev),
+            torch.from_numpy(noise).to(dev))
+
+
+def _par_mech_inputs(b: int, dev) -> tuple:
+    """B mechanics samples without SIMP: uniform designs at a drawn volume
+    fraction, cantilever BCs and loads, the exact solve's fields
+    (``fields_from_design``); t and noise."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
+        SCENARIO_FAMILIES, MechanicsFEM, fields_from_design)
+
+    rng = np.random.default_rng(23)
+    fem = MechanicsFEM(64)
+    fields = []
+    for _ in range(b):
+        vf = float(rng.uniform(0.3, 0.6))
+        fixed, f = SCENARIO_FAMILIES["cantilever"](fem, rng)
+        fields.append(fields_from_design(fem, np.full(64 * 64, vf), fixed, f))
+    x = np.stack(fields)
+    noise = rng.standard_normal((*x.shape[:-1], 3)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(rng.integers(0, 100, b)).to(dev),
+            torch.from_numpy(noise).to(dev))
+
+
+def _par_step(model, cfg, loss_fn, args, mesh) -> dict:
+    """One train step with fresh Adam on ``mesh`` (None: one process) on
+    the rank's rows of ``args``: the state, the logged loss (the data ranks'
+    mean), the clipped gradients and the updated weights (whole, in
+    ``named_parameters``' order and by state-dict key), the launch counts."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+        gather_state, shard_batch, sharded_dims)
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        create_train_state, make_optimizer, train_step)
+
+    state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip, mesh=mesh))
+    rows = tuple(shard_batch(a, mesh) for a in args)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    aux = train_step(state, loss_fn, *rows, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    dims = sharded_dims(model)
+    grads = gather_state({k: p.grad for k, p in model.named_parameters()
+                          if p.grad is not None}, dims, mesh)
+    return {"state": state, "loss": aux.loss.float(), "launches": launched,
+            "grads": [grads.get(k) for k, _ in model.named_parameters()],
+            "params": gather_state(model.state_dict(), dims, mesh)}
+
+
+def _hold_moves(got: dict, ref: dict, lr: float) -> float:
+    """PAR_MOVED_TOL's rule on two sets of weights after one step; returns
+    the share of entries beyond it."""
+    import torch
+
+    diffs = torch.cat([(got[k].float() - v.float()).abs().flatten() for k, v in ref.items()])
+    share = (diffs > PAR_MOVED_TOL * lr).float().mean().item()
+    if not torch.isfinite(diffs).all() or share > PAR_MOVED_SHARE:
+        raise AssertionError(f"{share:.2e} of the weights moved more than {PAR_MOVED_TOL} lr "
+                             f"from the one-process step's (limit {PAR_MOVED_SHARE})")
+    return share
+
+
+def _hold_grads(names, grads, ref, tol: float = STEP_GRAD_TOL) -> float:
+    """Each gradient within ``tol`` of its reference's largest entry;
+    returns the worst share of that."""
+    import torch
+
+    worst = 0.0
+    for name, g, r in zip(names, grads, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"{name}: gradient on one side only")
+        if g is None:
+            continue
+        scale, err = r.abs().max().item(), (g - r).abs().max().item()
+        if not torch.isfinite(g).all() or err > tol * scale:
+            raise AssertionError(f"{name}: gradient max |diff| {err:.3e} > {tol} x {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def parallel_darcy_phase(rank: int, dev) -> tuple[dict, dict]:
+    """23a: UNet(dim=32) from the 300k EMA weights, one step at B=64 on two
+    data ranks (32 rows each), fp32 and bf16 + fp32 head, and fp32 on a
+    (slice, dp, tp) = (2, 1, 1) mesh, against the one-process B=64 step
+    (rank 0, alone): 9b's rule in fp32 (and PAR_MOVED_TOL's on the weights),
+    13a's in bf16; K1 8 and K2 38 launches a forward and a backward on each
+    rank. Returns (what ``done`` prints, the states kept for the timed
+    turns)."""
+    import torch
+    import torch.distributed as dist
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import make_mesh
+
+    ph = phase(f"23a data parallel, Darcy, B={PAR_DARCY_BATCH} on {PAR_WORLD} ranks "
+               f"(rank {rank})")
+    cfg = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)[0]
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    args = _par_darcy_inputs(PAR_DARCY_BATCH, dev)
+    ref = {}
+    if rank == 0:
+        for dtype in ("float32", "bfloat16"):
+            ref[dtype] = _par_step(sample_eval.load_run(RUN, compute_dtype=dtype, device=dev)[1],
+                                   cfg, loss_fn, args, None)
+    dist.barrier()
+    runs, info = {}, {}
+    for name, dtype, slices in (("dp", "float32", 1), ("dp", "bfloat16", 1),
+                                ("slice", "float32", 2)):
+        mesh = make_mesh(1 if slices > 1 else None, 1, slices, "cuda")
+        model = sample_eval.load_run(RUN, compute_dtype=dtype, device=dev)[1]
+        runs[name, dtype] = run = _par_step(model, cfg, loss_fn, args, mesh)
+        want = launches_of(1, FP32_STEP_LAUNCHES if dtype == "float32" else BF16_STEP_LAUNCHES)
+        if run["launches"] != want:
+            raise AssertionError(f"23a {name} {dtype}: launches K1, K2, K4 {run['launches']}, "
+                                 f"want {want}")
+        info[f"{name}_{dtype}_launches"] = run["launches"]
+    if rank == 0:
+        names = [k for k, _ in runs["dp", "float32"]["state"].model.named_parameters()]
+        for name in ("dp", "slice"):
+            got, want = runs[name, "float32"], ref["float32"]
+            held = hold_fp32_step(got["state"].model, got["loss"], got["grads"], want["loss"],
+                                  want["grads"], sides=(f"{name} 2 ranks", "one process"))
+            info[f"{name}_fp32"] = {**held, "moved_share": _hold_moves(
+                got["params"], want["params"], cfg.lr)}
+        b16, b32 = runs["dp", "bfloat16"], runs["dp", "float32"]
+        info["dp_bf16"] = hold_bf16_step(
+            b16["state"].model, b16["loss"].item(), b16["grads"], b32["loss"].item(),
+            b32["grads"], ref["bfloat16"]["loss"].item(), ref["bfloat16"]["grads"],
+            ref["float32"]["loss"].item(), sides=("dp 2 ranks", "one process"))
+        del names
+    done(ph, **{k: json.dumps(v) for k, v in info.items()})
+    keep = {"cfg": cfg, "loss_fn": loss_fn, "args": args,
+            "two": runs["dp", "float32"]["state"], "one": ref.get("float32", {}).get("state")}
+    return info, keep
+
+
+def parallel_sp_phase(rank: int, dev) -> dict:
+    """23b: the same UNet with ``seq_parallel_attn`` on a (dp, tp) = (1, 2)
+    mesh (its parameters split by JAX's rule): the forward at B=8 within
+    phase 5's tolerance of the one-process forward, the input's and every
+    parameter's gradient (of sum(out * dy)) within STEP_GRAD_TOL; K2 38 and
+    38 launches, K1 none."""
+    import torch
+    import torch.distributed as dist
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+        gather_state, make_mesh, sharded_dims)
+
+    ph = phase(f"23b sequence-parallel linear attention, (dp, tp) = (1, 2) (rank {rank})")
+    mesh = make_mesh(1, 2, 1, "cuda")
+    model = sample_eval.load_run(RUN, compute_dtype="float32", device=dev, mesh=mesh,
+                                 mesh_flags={"mesh_tp": 2, "seq_parallel_attn": True})[1]
+    x, t, _ = _par_darcy_inputs(PAR_SP_BATCH, dev)
+    dy = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(23), device=dev)
+
+    def run(m):
+        xx = x.clone().requires_grad_(True)
+        y = m(xx, t)
+        (y * dy).sum().backward()
+        grads = gather_state({k: p.grad for k, p in m.named_parameters() if p.grad is not None},
+                             sharded_dims(m), mesh if m is model else None)
+        return y.detach(), xx.grad, [grads.get(k) for k, _ in m.named_parameters()]
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    y, dx, grads = run(model)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    if launched != SP_LAUNCHES:
+        raise AssertionError(f"23b: launches K1, K2, K4 {launched}, want {SP_LAUNCHES}")
+    info = {"launches": launched}
+    if rank == 0:
+        ref = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)[1]
+        y1, dx1, grads1 = run(ref)
+        err = (y - y1).abs().max().item()
+        if not torch.isfinite(y).all() or err > 5e-4:
+            raise AssertionError(f"23b: forward max |diff| {err:.3e} > 5e-4")
+        names = [k for k, _ in model.named_parameters()]
+        info.update(forward_max_abs_err=f"{err:.3e}",
+                    dx_worst=f"{_hold_grads(['x'], [dx], [dx1]):.2e}",
+                    grads_worst=f"{_hold_grads(names, grads, grads1):.2e}",
+                    grads_compared=sum(g is not None for g in grads1))
+    dist.barrier()
+    done(ph, **{k: json.dumps(v) for k, v in info.items()})
+    return info
+
+
+def _mech_tp_model(cfg, dtype: str, dev, mesh=None):
+    """The mechanics UNet of ``cfg`` in ``dtype``, seeded weights built on
+    the card (the same on every rank), split over ``mesh``."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import shard_params
+
+    with torch.device(dev):
+        torch.manual_seed(0)
+        weights = build_model(cfg, "float32").state_dict()
+        model = build_model(cfg, dtype, mesh)
+    model.load_state_dict(weights)
+    return shard_params(model, mesh)
+
+
+def _k2_calls(model) -> tuple[list, list]:
+    """Hooks recording the (N, C, groups, FiLM, dtype) of each K2 call of
+    ``model``'s Blocks (a column-parallel Block runs K2 on its groups // tp
+    groups); returns (the record, the hooks)."""
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import Block
+
+    calls = []
+
+    def on_block(module, args, kwargs, out):
+        tp = kwargs.get("tp")
+        groups = module.groups // (tp.tp if tp is not None else 1)
+        film = len(args) > 1 and args[1] is not None
+        calls.append((out.shape[1] * out.shape[2], out.shape[3], groups, film,
+                      str(out.dtype)[6:]))
+
+    return calls, [m.register_forward_hook(on_block, with_kwargs=True)
+                   for m in model.modules() if isinstance(m, Block)]
+
+
+def parallel_tp_phase(rank: int, dev) -> tuple[dict, dict]:
+    """23c: UNet(dim=128, channels=10, out_dim=3, sigmoid_last_channel=True),
+    seeded, bf16 + fp32 head, B=6, ``mesh_tp=2`` with
+    ``tp_shard_activations``: one train step of the mechanics loss on each
+    rank against the one-process step (13a's rule; the fp32 steps beside it
+    by 9b's rule); K1 8 and K2 38 launches; each K2 shape of a
+    column-parallel Block (C/2 channels, 4 groups) held against its plain
+    version forward and backward, fp32 and bf16, at B=6; each rank's bytes
+    of parameters, Adam state and EMA, and its peak memory. Returns (what
+    ``done`` prints, the states kept for the timed turns)."""
+    import torch
+    import torch.distributed as dist
+
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
+        group_norm_film_silu, group_norm_film_silu_plain)
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import make_mesh
+    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import MechanicsResidual
+    from physicsinformeddiffusionmodels_tpu_torch.train_mechanics import (
+        MECHANICS_DEFAULTS, build_mechanics_loss_fn)
+
+    ph = phase(f"23c tensor parallel, mechanics UNet at full width, tp=2 (rank {rank})")
+    cfg = RunConfig(**MECHANICS_DEFAULTS, gov_eqs="mechanics", fp32_head=True,
+                    mesh_tp=2, tp_shard_activations=True)
+    mesh = make_mesh(1, 2, 1, "cuda")
+    loss_fn = build_mechanics_loss_fn(create_schedule(cfg.diff_steps),
+                                      MechanicsResidual(pixels_per_dim=64, device=dev), cfg)
+    args = _par_mech_inputs(PAR_MECH_BATCH, dev)
+    model = _mech_tp_model(cfg, "bfloat16", dev, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calls, hooks = _k2_calls(model)
+    runs = {"bfloat16": _par_step(model, cfg, loss_fn, args, mesh)}
+    for h in hooks:
+        h.remove()
+    st = runs["bfloat16"]["state"]
+    n_bytes = {"params": sum(p.numel() * p.element_size() for p in st.model.parameters()),
+               "adam": sum(v.numel() * v.element_size() for s in st.optimizer.adam.state.values()
+                           for v in s.values() if torch.is_tensor(v)),
+               "ema": sum(p.numel() * p.element_size() for p in st.ema.parameters())}
+    info = {"rank_state_bytes": n_bytes, "rank_state_gb": sum(n_bytes.values()) / 1e9,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "bf16_launches": runs["bfloat16"]["launches"]}
+    whole = 16 * sum(p.numel() for p in runs["bfloat16"]["params"].values())
+    if sum(n_bytes.values()) > PAR_STATE_SHARE_MAX * whole:
+        raise AssertionError(f"23c: rank {rank} holds {sum(n_bytes.values())} bytes of state, "
+                             f"more than {PAR_STATE_SHARE_MAX} of {whole}")
+    if runs["bfloat16"]["launches"] != launches_of(1, BF16_STEP_LAUNCHES):
+        raise AssertionError(f"23c: launches K1, K2, K4 {runs['bfloat16']['launches']}, "
+                             f"want {launches_of(1, BF16_STEP_LAUNCHES)}")
+    runs["float32"] = _par_step(_mech_tp_model(cfg, "float32", dev, mesh), cfg, loss_fn, args,
+                                mesh)
+    keep = {"cfg": cfg, "loss_fn": loss_fn, "args": args, "two": runs["bfloat16"]["state"]}
+    if rank == 0:
+        ref = {d: _par_step(_mech_tp_model(cfg, d, dev), cfg, loss_fn, args, None)
+               for d in ("float32", "bfloat16")}
+        b16, b32 = runs["bfloat16"], runs["float32"]
+        info["fp32"] = hold_fp32_step(b32["state"].model, b32["loss"], b32["grads"],
+                                      ref["float32"]["loss"], ref["float32"]["grads"],
+                                      sides=("tp 2 ranks", "one process"))
+        info["bf16"] = hold_bf16_step(
+            b16["state"].model, b16["loss"].item(), b16["grads"], b32["loss"].item(),
+            b32["grads"], ref["bfloat16"]["loss"].item(), ref["bfloat16"]["grads"],
+            ref["float32"]["loss"].item(), sides=("tp 2 ranks", "one process"))
+        keep["one"] = ref["bfloat16"]["state"]
+        del ref["float32"]
+        # K2 at the column-parallel Blocks' shapes, against its plain version
+        tp_shapes = sorted({(n, c, g, f) for n, c, g, f, _ in calls if g != 8})
+        if not tp_shapes or any(g != 4 for _, _, g, _ in tp_shapes):
+            raise AssertionError(f"23c: K2 calls at 4 groups expected, got {sorted(set(calls))}")
+        gen = torch.Generator(device=dev).manual_seed(23)
+
+        def k2_args(b, n, c, film):
+            def r(*shape, scale=1.0, shift=0.0):
+                return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+            return [r(b, n, c, scale=2.0, shift=0.5), r(c, scale=0.1, shift=1.0),
+                    r(c, scale=0.1), r(b, c, scale=0.1) if film else None,
+                    r(b, c, scale=0.1) if film else None]
+
+        for n, c, g, film in tp_shapes:
+            for backward in (False, True):
+                check_mechanics(
+                    f"group_norm_film_silu{'_backward' if backward else ''} groups={g}",
+                    lambda *a, g=g: group_norm_film_silu(*a, groups=g),
+                    lambda *a, g=g: group_norm_film_silu_plain(*a, groups=g),
+                    lambda b, n_, c_, film=film: k2_args(b, n_, c_, film), [(n, c)], backward)
+        info["k2_tp_shapes"] = tp_shapes
+    dist.barrier()
+    done(ph, **{k: json.dumps(v) for k, v in info.items()})
+    return info, keep
+
+
+def _steps_per_s(fn, steps: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def parallel_timing(rank: int, kept: dict) -> dict:
+    """Steps/s of 23a's fp32 Darcy step and 23c's bf16 mechanics step, eager,
+    in turns: one process (rank 0 alone, the whole batch), two ranks, two
+    ranks, one process. The two ranks share the card, so the gap is the
+    cost of the collectives a step, not a scaling."""
+    import torch.distributed as dist
+
+    from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import shard_batch
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import train_step
+
+    out = {}
+    for name, k in kept.items():
+        cfg, loss_fn, args = k["cfg"], k["loss_fn"], k["args"]
+        mesh = k["two"].optimizer.mesh
+        rows = tuple(shard_batch(a, mesh) for a in args)
+        rates = {"one": [], "two": []}
+        for who in ("one", "two", "two", "one"):
+            dist.barrier()
+            if who == "two":
+                rates["two"].append(_steps_per_s(
+                    lambda: train_step(k["two"], loss_fn, *rows, ema_mu=cfg.ema_decay,
+                                       ema_start=cfg.ema_start), PAR_TIMED[name]))
+            elif rank == 0:
+                rates["one"].append(_steps_per_s(
+                    lambda: train_step(k["one"], loss_fn, *args, ema_mu=cfg.ema_decay,
+                                       ema_start=cfg.ema_start), PAR_TIMED[name]))
+            dist.barrier()
+        if rank == 0:
+            one, two = (float(np.mean(rates[w])) for w in ("one", "two"))
+            out[name] = {"one_process_steps_per_s": one, "two_ranks_steps_per_s": two,
+                         "overhead_ms_a_step": 1e3 * (1 / two - 1 / one),
+                         "turns": rates}
+    return out
+
+
+def _wait_for(path: Path) -> None:
+    """Block until the main process writes ``path`` (PAR_JOIN_S at most)."""
+    deadline = time.monotonic() + PAR_JOIN_S
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path.name} from the main process")
+        time.sleep(0.2)
+
+
+def parallel_worker(rank: int, work: Path) -> int:
+    """A rank of phase 23: joins the gloo group of PAR_WORLD ranks on
+    cuda:0, waits for the main process's ``checks``, runs 23a-c, writes
+    ``checks_<rank>.json``, waits for its ``go`` and runs the timed turns
+    (rank 0 writes ``timing.json``). Returns the exit code; a failure
+    writes its traceback to ``error_<rank>.txt``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is False")
+        from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+        from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
+
+        # the ranks' checks run beside the main process's phases: they
+        # yield it the host's CPU, as the background data jobs do
+        os.nice(10)
+        torch.set_num_threads(1)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        set_fp32_exact()
+        dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                                world_size=PAR_WORLD,
+                                timeout=datetime.timedelta(seconds=PAR_COLLECTIVE_S))
+        # the main process builds the kernels meanwhile: load them after
+        # its word, never build them here
+        _wait_for(work / "checks")
+        _build.library()
+        checks, kept = {}, {}
+        checks["23a"], kept["darcy"] = parallel_darcy_phase(rank, dev)
+        checks["23b"] = parallel_sp_phase(rank, dev)
+        checks["23c"], kept["mechanics"] = parallel_tp_phase(rank, dev)
+        (work / f"checks_{rank}.json").write_text(json.dumps(checks, default=str))
+        _wait_for(work / "go")
+        timing = parallel_timing(rank, kept)
+        if rank == 0:
+            (work / "timing.json").write_text(json.dumps(timing))
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    except Exception:  # the main process reads the traceback and fails the phase
+        (work / f"error_{rank}.txt").write_text(traceback.format_exc())
+        return 1
+
+
+class ParallelRanks:
+    """Phase 23's PAR_WORLD rank processes (this script with
+    ``--parallel-rank``), started in the background, where they join
+    their group and wait: ``start_checks()`` lets them run 23a-c on the
+    card, ``check()`` raises if one has failed, ``finish()`` lets them run
+    their timed turns, joins them (PAR_JOIN_S at most) and returns their
+    checks and timings; ``stop()`` kills any still running."""
+
+    def __init__(self, tmp: Path):
+        self.work = tmp / "parallel"
+        self.work.mkdir(parents=True, exist_ok=True)
+        self.procs = []
+        for r in range(PAR_WORLD):
+            log = open(self.work / f"rank_{r}.log", "w")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
+                 "--parallel-dir", str(self.work)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+            log.close()
+
+    def start_checks(self) -> None:
+        (self.work / "checks").touch()
+
+    def _failed(self) -> str:
+        errors = sorted(self.work.glob("error_*.txt"))
+        logs = [(self.work / f"rank_{r}.log").read_text()[-3000:] for r in range(PAR_WORLD)]
+        return "\n".join([e.read_text() for e in errors] + logs)
+
+    def check(self) -> None:
+        if any(p.poll() not in (None, 0) for p in self.procs):
+            self.stop()
+            raise RuntimeError("a phase 23 rank failed:\n" + self._failed())
+
+    def finish(self) -> tuple[list, dict]:
+        (self.work / "go").touch()
+        deadline = time.monotonic() + PAR_JOIN_S
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise RuntimeError("a phase 23 rank hung:\n" + self._failed())
+        self.check()
+        for r in range(PAR_WORLD):
+            for line in (self.work / f"rank_{r}.log").read_text().splitlines():
+                if line.startswith("[23") or line.startswith("  group_norm"):
+                    print(f"  rank {r} {line}", flush=True)
+        checks = [json.loads((self.work / f"checks_{r}.json").read_text())
+                  for r in range(PAR_WORLD)]
+        return checks, json.loads((self.work / "timing.json").read_text())
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def torchrun_cli_start(tmp: Path) -> dict:
+    """23d, started in the background on 9a's sets in ``tmp``: the training
+    CLI under ``torchrun --standalone --nproc-per-node 1 --mesh-dp 1`` (the
+    launcher path: NCCL, the rank's own GPU) for 3 steps in the study's
+    bf16 + fp32-head recipe, and the same CLI
+    with ``--mesh-tp 2`` and no process group, which must raise."""
+    out = tmp / "torchrun_cli"
+    out.mkdir(parents=True, exist_ok=True)
+    args = ["-m", "physicsinformeddiffusionmodels_tpu_torch.train", "--iterations", "3",
+            "--batch-size", "16", "--compute-dtype", "bfloat16", "--fp32-head",
+            "--data-dir", str(tmp / "train"), "--valid-data-dir", str(tmp / "valid"),
+            "--output-dir", str(out), "--name", "torchrun", "--sample-freq", "1000",
+            "--test-eval-freq", "3", "--log-freq", "1", "--no-samples", "4"]
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    cmds = {"torchrun": [*nice, sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "1", *args, "--mesh-dp", "1"],
+            "no_group": [*nice, sys.executable, *args, "--mesh-tp", "2"]}
+    jobs = {"out": out, "t0": time.time()}
+    for name, cmd in cmds.items():
+        log = open(out / f"{name}.log", "w")
+        # a session of its own, so that stopping it stops torchrun's worker too
+        jobs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                      start_new_session=True,
+                                      env={**os.environ, "OMP_NUM_THREADS": "2"})
+        log.close()
+    atexit.register(torchrun_cli_stop, jobs)
+    return jobs
+
+
+def torchrun_cli_stop(jobs: dict) -> None:
+    """Kill 23d's process groups that are still running."""
+    import signal
+
+    for name in ("torchrun", "no_group"):
+        if jobs[name].poll() is None:
+            os.killpg(jobs[name].pid, signal.SIGKILL)
+            jobs[name].wait()
+
+
+def torchrun_cli_finish(jobs: dict) -> dict:
+    """23d's checks: the torchrun run exits 0 on its (dp, tp) = (1, 1) mesh
+    with finite losses at steps 0-3 in metrics.csv and checkpoint_3 written;
+    the run without a process group exits non-zero naming torchrun."""
+    out = jobs["out"]
+    for name in ("torchrun", "no_group"):
+        try:
+            jobs[name].wait(timeout=PAR_JOIN_S)
+        except subprocess.TimeoutExpired:
+            torchrun_cli_stop(jobs)
+            raise RuntimeError(f"23d {name} hung:\n" + (out / f"{name}.log").read_text()[-3000:])
+    log, refused = ((out / f"{n}.log").read_text() for n in ("torchrun", "no_group"))
+    if jobs["torchrun"].returncode != 0 or "mesh: {'dp': 1, 'tp': 1}" not in log:
+        raise RuntimeError(f"23d torchrun exited {jobs['torchrun'].returncode}:\n{log[-3000:]}")
+    with open(out / "torchrun" / "metrics.csv", newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r["loss"]]
+    losses = [float(r["loss"]) for r in rows]
+    if [int(r["step"]) for r in rows] != [0, 1, 2, 3] or not np.isfinite(losses).all():
+        raise RuntimeError(f"23d torchrun metrics: steps {[r['step'] for r in rows]}, "
+                           f"losses {losses}")
+    if not (out / "torchrun" / "model" / "checkpoint_3.msgpack").exists():
+        raise RuntimeError("23d torchrun: no checkpoint_3")
+    if jobs["no_group"].returncode == 0 or "torchrun" not in refused:
+        raise RuntimeError(f"23d --mesh-tp 2 without a process group exited "
+                           f"{jobs['no_group'].returncode}:\n{refused[-3000:]}")
+    # the run's own seconds: until its log was last written
+    return {"losses": losses, "seconds": (out / "torchrun.log").stat().st_mtime - jobs["t0"],
+            "refused": refused.strip().splitlines()[-1]}
+
+
 def corrected_sampling_phase(dev, plain_summary: dict) -> None:
     """Phase 11, against phase 6's ``sample_eval`` summary."""
     import torch
@@ -2307,6 +2943,9 @@ def corrected_sampling_phase(dev, plain_summary: dict) -> None:
 def main() -> int:
     import torch
 
+    if "--parallel-rank" in sys.argv:  # a rank of phase 23, started by ParallelRanks
+        return parallel_worker(int(sys.argv[sys.argv.index("--parallel-rank") + 1]),
+                               Path(sys.argv[sys.argv.index("--parallel-dir") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2334,6 +2973,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     done(ph)
 
+    # phase 23's processes start now, join their group during the build
+    # (which takes the CPU and times nothing) and wait; they run on the card
+    # only after 19d's timing, the last of the main paths'
+    data_tmp = tempfile.TemporaryDirectory(prefix="pidm_smoke_")
+    par = ParallelRanks(Path(data_tmp.name))
+    atexit.register(par.stop)
+
     ph = phase("2 build")
     lib_path, log, build_s = _build.build()
     _build.library()
@@ -2344,7 +2990,6 @@ def main() -> int:
 
     # the sets of 9a and 19a, made in the background while the card runs 3-8
     # (after the build, whose nvcc takes the CPU); stopped at exit either way
-    data_tmp = tempfile.TemporaryDirectory(prefix="pidm_smoke_")
     jobs = DataJobs(Path(data_tmp.name))
     atexit.register(jobs.stop)
 
@@ -2445,70 +3090,88 @@ def main() -> int:
                     group_norm_film_silu_plain, k2_args, MECHANICS_DOWN_CALLS, backward=True)
     done(ph, max_abs_err=f"{k2b['max_abs_err']:.3e}")
 
-    # phases 11, 20 and 21 need none of 9a's data (nor a draw of ``gen``):
-    # they run while the background jobs make it
-    ph = phase("11 corrected sampling")
-    corrected_sampling_phase(dev, summary)
-    done(ph)
+    # every kernel timing (10, 12, 14, 15ab) runs here, on a quiet card;
+    # they draw from ``gen`` in the order they did after 9 and 13, which
+    # draw nothing from it
+    ph = phase("10 K3 linear attention")
+    k3, k3b = k3_phase(dev, randn, k1_args, distinct)
+    done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}",
+         bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
+         launches=f"{k3['launches']}/{k3b['launches']}")
+
+    ph = phase("12 bf16 backward kernels")
+    ragged = [(100, 32), (33, 64)]
+    k1b16 = check_backward(
+        "linear_attention_block_backward_bf16", linear_attention_block,
+        linear_attention_block_plain,
+        lambda *a: (*a[:4], *la.launch_forward(*a)[1:]), la.launch_backward,
+        k1_args, distinct + ragged, K1_CALLS, k1_bwd_work, bf16=True)
+    k2b16 = check_backward(
+        "group_norm_film_silu_backward_bf16", group_norm_film_silu,
+        group_norm_film_silu_plain, lambda *a: (*a, gn.launch_forward(*a)[1]),
+        gn.launch_backward, k2_args, k2_shapes, K2_CALLS, k2_bwd_work, bf16=True)
+    k3b16 = check_backward(
+        "linear_attention_backward_bf16", la.linear_attention, la.linear_attention_plain,
+        lambda *a: (*a, *la.launch_attention_forward(*a)[1:]), la.launch_attention_backward,
+        lambda b, n, c: [k1_args(b, n, c)[i] for i in (0, 2, 3)], distinct + ragged,
+        K1_CALLS, k3_bwd_work, bf16=True)
+    print("  K3 backward, bf16, one UNet backward's calls at B=64: " + json.dumps(
+        {k: k3b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}), flush=True)
+    done(ph, k1_max_abs_err=f"{k1b16['max_abs_err']:.3e}",
+         k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
+         k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
+
+    ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
+    k5 = k5_phase(dev, randn)
+    done(ph, max_abs_err=f"{k5['max_abs_err']:.3e}", launches=k5["launches"])
+
+    ph = phase("15ab K4 against its plain version")
+    k4, k4b = k4_phase(dev, randn)
+    done(ph, max_abs_err=f"{k4['max_abs_err']:.3e}",
+         bwd_max_abs_err=f"{k4b['max_abs_err']:.3e}")
+    print("  K4 per UNet pass at B=64 (fp32: 18 calls; bf16 + fp32 head: 16), device ms: "
+          + json.dumps({e["name"]: {k: v for k, v in e.items() if k.endswith("ms")}
+                        for e in (k4, k4b)}), flush=True)
+
+    # phases 20 and 21 need none of 9a's data: they run while the
+    # background jobs make it
     steps_per_s = toy_phase(Path(data_tmp.name), dev, smi)
     steps_per_s.update(simp_phase(Path(data_tmp.name), dev, smi))
 
+    # the card vs CPU train steps (9b, 15e, 16b, 17c), which time nothing,
+    # run after 22, beside phase 23's ranks
+    later = []
     with data_tmp as tmp:
         (k1["launches"], k1b["launches"], k2["launches"], k2b["launches"]), steps_per_s["9d"] = \
-            train_phase(Path(tmp), dev, smi, jobs)
-
-        ph = phase("10 K3 linear attention")
-        k3, k3b = k3_phase(dev, randn, k1_args, distinct)
-        done(ph, max_abs_err=f"{k3['max_abs_err']:.3e}",
-             bwd_max_abs_err=f"{k3b['max_abs_err']:.3e}",
-             launches=f"{k3['launches']}/{k3b['launches']}")
-
-        ph = phase("12 bf16 backward kernels")
-        ragged = [(100, 32), (33, 64)]
-        k1b16 = check_backward(
-            "linear_attention_block_backward_bf16", linear_attention_block,
-            linear_attention_block_plain,
-            lambda *a: (*a[:4], *la.launch_forward(*a)[1:]), la.launch_backward,
-            k1_args, distinct + ragged, K1_CALLS, k1_bwd_work, bf16=True)
-        k2b16 = check_backward(
-            "group_norm_film_silu_backward_bf16", group_norm_film_silu,
-            group_norm_film_silu_plain, lambda *a: (*a, gn.launch_forward(*a)[1]),
-            gn.launch_backward, k2_args, k2_shapes, K2_CALLS, k2_bwd_work, bf16=True)
-        k3b16 = check_backward(
-            "linear_attention_backward_bf16", la.linear_attention, la.linear_attention_plain,
-            lambda *a: (*a, *la.launch_attention_forward(*a)[1:]), la.launch_attention_backward,
-            lambda b, n, c: [k1_args(b, n, c)[i] for i in (0, 2, 3)], distinct + ragged,
-            K1_CALLS, k3_bwd_work, bf16=True)
-        print("  K3 backward, bf16, one UNet backward's calls at B=64: " + json.dumps(
-            {k: k3b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}), flush=True)
-        done(ph, k1_max_abs_err=f"{k1b16['max_abs_err']:.3e}",
-             k2_max_abs_err=f"{k2b16['max_abs_err']:.3e}",
-             k3_max_abs_err=f"{k3b16['max_abs_err']:.3e}")
+            train_phase(Path(tmp), dev, smi, jobs, later)
+        par.check()
 
         (k1f16["launches"], k1b16["launches"], k2f16["launches"], k2b16["launches"],
          steps_per_s["13c"]) = bf16_train_phase(Path(tmp), dev, smi)
+        par.check()
 
-        ph = phase("14 K5 lane-packed GroupNorm-FiLM-SiLU")
-        k5 = k5_phase(dev, randn)
-        done(ph, max_abs_err=f"{k5['max_abs_err']:.3e}", launches=k5["launches"])
-
-        ph = phase("15ab K4 against its plain version")
-        k4, k4b = k4_phase(dev, randn)
-        done(ph, max_abs_err=f"{k4['max_abs_err']:.3e}",
-             bwd_max_abs_err=f"{k4b['max_abs_err']:.3e}")
-        print("  K4 per UNet pass at B=64 (fp32: 18 calls; bf16 + fp32 head: 16), device ms: "
-              + json.dumps({e["name"]: {k: v for k, v in e.items() if k.endswith("ms")}
-                            for e in (k4, k4b)}), flush=True)
-        fp32_counts, bf16_counts = cm_phase(Path(tmp), dev, smi, summary, steps_per_s)
+        fp32_counts, bf16_counts = cm_phase(Path(tmp), dev, smi, summary, steps_per_s,
+                                             later)
         k4["launches"], k4b["launches"] = fp32_counts[0], fp32_counts[2]
         k4["bf16_launches"], k4b["bf16_launches"] = bf16_counts[1], bf16_counts[3]
 
-        steps_per_s["16c"] = ddim_phase(Path(tmp), dev, smi)
-        steps_per_s["17d"] = guidance_phase(Path(tmp), dev, smi)
+        steps_per_s["16c"] = ddim_phase(Path(tmp), dev, smi, later)
+        steps_per_s["17d"] = guidance_phase(Path(tmp), dev, smi, later)
         graph_phase(Path(tmp), dev, smi, steps_per_s)
+
+        cli23 = {}
+
+        def card_shared():
+            # after 19d's timing: phase 23's ranks run their checks and the
+            # torchrun CLI its steps beside 19e, 22, the later checks and 11,
+            # which time nothing but 19e's and 11's samples/s (marked so)
+            par.start_checks()
+            cli23.update(torchrun_cli_start(Path(tmp)))
+
         mech_k1, mech_k2, mech_sps = mechanics_phase(Path(tmp), dev, smi, k1_args, k2_args,
-                                                     jobs)
+                                                     jobs, card_shared)
         steps_per_s.update(mech_sps)
+        par.check()
         for entry, counts in ((k1f16, mech_k1[1]), (k1b16, mech_k1[3]), (k2f16, mech_k2[1]),
                               (k2b16, mech_k2[3])):
             entry["mechanics_launches"] = counts
@@ -2518,6 +3181,31 @@ def main() -> int:
             entry["unet_options_launches"] = counts
         print("  training steps/s (main paths; graph: 18b): " + json.dumps(
             {k: f"{v:.3f}" for k, v in steps_per_s.items()}), flush=True)
+        for check in later:
+            check()
+
+        ph = phase("11 corrected sampling (beside phase 23's ranks: its samples/s are a "
+                   "shared card's)")
+        corrected_sampling_phase(dev, summary)
+        done(ph)
+
+        ph = phase("23 the parallel layer: the ranks' checks and timed turns, the torchrun CLI")
+        # the timed turns start when the CLI has ended: on a quiet card
+        cli = torchrun_cli_finish(cli23)
+        checks, timing = par.finish()
+        for r, c in enumerate(checks):
+            print(f"  rank {r} state at tp=2: {json.dumps(c['23c']['rank_state_bytes'])} bytes "
+                  f"({c['23c']['rank_state_gb']:.4f} GB), peak memory "
+                  f"{c['23c']['peak_memory_gib']:.2f} GiB", flush=True)
+        print("  steps/s, eager, two ranks sharing the card (the collectives' cost, not a "
+              "scaling): " + json.dumps(timing), flush=True)
+        done(ph, torchrun_losses=json.dumps(cli["losses"]),
+             torchrun_seconds=f"{cli['seconds']:.2f}", no_group=json.dumps(cli["refused"]))
+        dp, tp = checks[0]["23a"]["dp_float32_launches"], checks[0]["23c"]["bf16_launches"]
+        for entry, counts in ((k1, dp[0][0]), (k1b, dp[0][2]), (k2, dp[1][0]), (k2b, dp[1][2]),
+                              (k1f16, tp[0][1]), (k1b16, tp[0][3]), (k2f16, tp[1][1]),
+                              (k2b16, tp[1][3])):
+            entry["parallel_launches"] = counts
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
 
     for entry, source, replaces in (

@@ -13,7 +13,10 @@ loss of ``x0_estimation='sample'`` (``ddim_sample_x0``).
 JAX draws the noise from split keys inside a ``lax.scan``; here the loop is
 a Python loop over the T model calls, and the noise comes either from a
 ``torch.Generator`` or from an explicit [T, B, ...] tensor (row i is used
-at step i, i.e. at t = T-1-i), so that a test can replay JAX's draws.
+at step i, i.e. at t = T-1-i), so that a test can replay JAX's draws, or,
+for a batch split over data ranks, from ``RowNoise``: each step draws the
+whole batch's noise and keeps the rank's rows, so that the rows equal the
+one-rank run's.
 """
 
 from __future__ import annotations
@@ -31,7 +34,16 @@ from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
     predict_start_from_noise,
 )
 
-Noise = Union[torch.Generator, torch.Tensor]
+class RowNoise(NamedTuple):
+    """Per-step noise of rows ``rows`` of a batch of ``batch``: each step
+    draws [batch, ...] from ``generator`` and keeps those rows."""
+
+    generator: torch.Generator
+    batch: int
+    rows: slice
+
+
+Noise = Union[torch.Generator, torch.Tensor, RowNoise]
 DYNAMIC_THRESHOLD_PERCENTILE = 0.9
 
 
@@ -112,9 +124,9 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
     """T ancestral steps from ``x_init`` (cast to float32), ``pred_mode``
     and ``suppress_noise`` as in ``p_sample_step``.
 
-    ``noise`` is a ``torch.Generator`` on x_init's device, or a
-    [T, *x_init.shape] tensor of per-step draws (a generator draws nothing
-    for t = 0 while the noise is suppressed there). ``correction_fn`` (x ->
+    ``noise`` is a ``torch.Generator`` on x_init's device, a
+    [T, *x_init.shape] tensor of per-step draws, or a ``RowNoise`` (a
+    generator draws nothing for t = 0 while the noise is suppressed there). ``correction_fn`` (x ->
     corrected x) is applied while t < ``n_correction``, to the x0 prediction
     (``correction_mode`` 'x0') or to the sampled state ('xt'), and
     ``m_correction`` more times after the loop.
@@ -131,6 +143,9 @@ def p_sample_loop(sched: DiffusionSchedule, denoise_fn: Callable, x_init: torch.
             z = None
         elif isinstance(noise, torch.Tensor):
             z = noise[i].to(device=x.device, dtype=x.dtype)
+        elif isinstance(noise, RowNoise):
+            z = torch.randn((noise.batch, *x.shape[1:]), generator=noise.generator,
+                            device=x.device, dtype=x.dtype)[noise.rows]
         else:
             z = torch.randn(x.shape, generator=noise, device=x.device, dtype=x.dtype)
         corr = use_corr and t < n_correction

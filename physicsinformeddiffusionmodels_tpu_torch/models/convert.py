@@ -57,3 +57,13 @@ def torch_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
                 a = a.T
         out[".".join([*modules, name])] = torch.from_numpy(np.array(a, order="C"))  # a copy
     return out
+
+
+def flax_last_dim(key: str, ndim: int) -> int:
+    """The dim of the state-dict entry ``key`` (``ndim`` dims) that holds the
+    last axis of its Flax leaf: a conv weight's O (0 in OIHW, 1 in a
+    transposed conv's IOHW), a Linear weight's out (0), else the last."""
+    *modules, name = key.split(".")
+    if name != "weight" or ndim < 2:
+        return ndim - 1
+    return 1 if ndim == 4 and modules[-1].startswith("ConvTranspose") else 0

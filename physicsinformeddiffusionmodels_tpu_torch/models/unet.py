@@ -56,6 +56,15 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention,
     linear_attention_block,
 )
+from physicsinformeddiffusionmodels_tpu_torch.parallel.collectives import (
+    enter_partial,
+    gather,
+    shard,
+)
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import Mesh, cols, whole
+from physicsinformeddiffusionmodels_tpu_torch.parallel.seq_attention import (
+    sequence_sharded_linear_attention_block,
+)
 
 
 def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
@@ -101,7 +110,8 @@ def _conv(x: torch.Tensor, weight, bias, dtype, stride=1, padding=0, transpose=F
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     dt = dtype or x.dtype
-    return F.linear(x.to(dt), layer.weight.to(dt), _cast(layer.bias, dt))
+    bias = whole(layer, "bias") if layer.bias is not None else None
+    return F.linear(x.to(dt), whole(layer, "weight").to(dt), _cast(bias, dt))
 
 
 def _lecun(*shape: int) -> nn.Parameter:
@@ -160,10 +170,12 @@ class Conv2dPadded(nn.Module):
         self.dtype = dtype
         self.circular = padding_mode == "circular"
 
-    def forward(self, x):
+    def forward(self, x, tp: Optional[Mesh] = None):
+        """``tp``: column-parallel, the rank's output channels of the whole x."""
         c = self.Conv_0
-        return _conv(x, c.weight, c.bias, self.dtype, c.stride, c.padding[0],
-                     circular=self.circular)
+        w, b = ((whole(c, "weight"), whole(c, "bias")) if tp is None
+                else (cols(c, "weight", 0, tp), cols(c, "bias", 0, tp)))
+        return _conv(x, w, b, self.dtype, c.stride, c.padding[0], circular=self.circular)
 
 
 class Downsample(nn.Module):
@@ -173,8 +185,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.Conv2dPadded_0 = Conv2dPadded(dim, dim, 4, 2, 1, dtype, padding_mode)
 
-    def forward(self, x):
-        return self.Conv2dPadded_0(x)
+    def forward(self, x, tp: Optional[Mesh] = None):
+        return self.Conv2dPadded_0(x, tp)
 
 
 class Upsample(nn.Module):
@@ -187,12 +199,15 @@ class Upsample(nn.Module):
         self.dtype = dtype
         self.circular = padding_mode == "circular"
 
-    def forward(self, x):
+    def forward(self, x, tp: Optional[Mesh] = None):
+        """``tp``: column-parallel, the rank's output channels of the whole x."""
         c = self.ConvTranspose_0
+        w, b = ((whole(c, "weight"), whole(c, "bias")) if tp is None
+                else (cols(c, "weight", 1, tp), cols(c, "bias", 0, tp)))
         if not self.circular:
-            return _conv(x, c.weight, c.bias, self.dtype, 2, 1, transpose=True)
+            return _conv(x, w, b, self.dtype, 2, 1, transpose=True)
         xp = _pad2d(x, 1)
-        y = _conv(xp, c.weight, c.bias, self.dtype, 2, 0, transpose=True)
+        y = _conv(xp, w, b, self.dtype, 2, 0, transpose=True)
         crop = (y.shape[1] - 2 * (xp.shape[1] - 2)) // 2
         return y[:, crop:-crop, crop:-crop].contiguous()
 
@@ -213,17 +228,23 @@ class Block(nn.Module):
         self.dtype = dtype
         self.circular = padding_mode == "circular"
 
-    def forward(self, x, scale_shift=None, cm: int = 0):
+    def forward(self, x, scale_shift=None, cm: int = 0, tp: Optional[Mesh] = None):
+        """``tp``: column-parallel, the rank's C/tp output channels of the
+        whole x, K2 on its groups // tp groups, ``scale_shift`` the rank's."""
         scale, shift = scale_shift if scale_shift is not None else (None, None)
+        names = ("weight", "bias", "gn_scale", "gn_bias")
+        if tp is not None:
+            w, b, g, beta = (cols(self, n, 0, tp) for n in names)
+            h = _conv(x, w, b, self.dtype, 1, 1, circular=self.circular)
+            return group_norm_film_silu(h, g, beta, scale, shift, groups=self.groups // tp.tp)
+        w, b, g, beta = (whole(self, n) for n in names)
         if cm:
             if self.circular:
                 raise ValueError("the channel-major Block (K4) pads with zeros only")
-            return conv_gn_film_silu_cm(x.to(self.dtype or x.dtype), self.weight, self.bias,
-                                        self.gn_scale, self.gn_bias, scale, shift, cm,
-                                        self.groups)
-        h = _conv(x, self.weight, self.bias, self.dtype, 1, 1, circular=self.circular)
-        return group_norm_film_silu(h, self.gn_scale, self.gn_bias, scale, shift,
-                                    groups=self.groups)
+            return conv_gn_film_silu_cm(x.to(self.dtype or x.dtype), w, b, g, beta, scale,
+                                        shift, cm, self.groups)
+        h = _conv(x, w, b, self.dtype, 1, 1, circular=self.circular)
+        return group_norm_film_silu(h, g, beta, scale, shift, groups=self.groups)
 
 
 class ResnetBlock(nn.Module):
@@ -243,19 +264,32 @@ class ResnetBlock(nn.Module):
             self.res_bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
 
-    def forward(self, x, time_emb=None, cm: int = 0):
+    def forward(self, x, time_emb=None, cm: int = 0, tp: Optional[Mesh] = None):
+        """``tp``: column-parallel: x is the whole input, whose gradient the
+        tp ranks' shares make up (``enter_partial``, or a ``gather`` with
+        ``partial``); returns the rank's C/tp output channels."""
         scale_shift = None
         if time_emb is not None:
             emb = _dense(F.silu(time_emb), self.Dense_0, self.dtype).float()
             scale_shift = tuple(e.contiguous() for e in emb.chunk(2, dim=-1))
-        h = self.Block_1(self.Block_0(x, scale_shift, cm), cm=cm)
+            if tp is not None:
+                scale_shift = tuple(shard(e, -1, tp.tp_group) for e in scale_shift)
+        if tp is None:
+            h = self.Block_1(self.Block_0(x, scale_shift, cm), cm=cm)
+        else:
+            h = self.Block_0(x, scale_shift, tp=tp)
+            h = self.Block_1(gather(h, -1, tp.tp_group, partial=True), tp=tp)
         if not hasattr(self, "res_kernel"):
-            return h + x
+            return h + (x if tp is None else x.narrow(-1, tp.tp_rank * h.shape[-1], h.shape[-1]))
         dt = self.dtype or x.dtype
+        if tp is not None:
+            kernel, bias = cols(self, "res_kernel", 1, tp), cols(self, "res_bias", 0, tp)
+        else:
+            kernel, bias = whole(self, "res_kernel"), whole(self, "res_bias")
         if cm:
-            return h + (torch.einsum("bcn,cd->bdn", x.to(dt), self.res_kernel.to(dt))
-                        + self.res_bias.to(dt)[:, None])
-        return h + (x.to(dt) @ self.res_kernel.to(dt) + self.res_bias.to(dt))
+            return h + (torch.einsum("bcn,cd->bdn", x.to(dt), kernel.to(dt))
+                        + bias.to(dt)[:, None])
+        return h + (x.to(dt) @ kernel.to(dt) + bias.to(dt))
 
 
 class SpatialLinearAttention(nn.Module):
@@ -282,9 +316,15 @@ class SpatialLinearAttention(nn.Module):
 
 class LinearAttentionBlock(nn.Module):
     """x + b_out + LA(LN_gamma(x)) over the pixel tokens: kernel K1; ``cm``
-    takes and returns channel-major [B, C, N]."""
+    takes and returns channel-major [B, C, N].
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None):
+    With ``sp_mesh`` (tp > 1 dividing the tokens) the block runs
+    sequence-parallel instead: each tp rank takes its contiguous tokens,
+    the attention's statistics cross ranks, and every rank gets the whole
+    output (``parallel.seq_attention``, plain PyTorch as in JAX)."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None,
+                 sp_mesh: Optional[Mesh] = None):
         super().__init__()
         hidden = heads * dim_head
         self.ln_gamma = nn.Parameter(torch.ones(dim))
@@ -292,17 +332,32 @@ class LinearAttentionBlock(nn.Module):
         self.w_out = _lecun(hidden, dim)
         self.b_out = nn.Parameter(torch.zeros(dim))
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.sp_mesh = sp_mesh
 
-    def forward(self, x, cm: bool = False):
+    def forward(self, x, cm: bool = False, tp: Optional[Mesh] = None):
+        """``tp``: x is the rank's channels of a wide stage; the block runs
+        on the gathered x (its LN needs every channel) and returns the
+        rank's channels."""
+        gamma, w_qkv, w_out, b_out = (whole(self, n)
+                                      for n in ("ln_gamma", "w_qkv", "w_out", "b_out"))
+        dt = self.dtype or x.dtype
         if cm:
-            return linear_attention_block(x.to(self.dtype or x.dtype), self.ln_gamma, self.w_qkv,
-                                          self.w_out, self.b_out, self.heads, self.dim_head,
-                                          channel_major=True)
+            return linear_attention_block(x.to(dt), gamma, w_qkv, w_out, b_out, self.heads,
+                                          self.dim_head, channel_major=True)
+        if tp is not None:
+            x = gather(x, -1, tp.tp_group, partial=False)
         b, h, w, c = x.shape
-        tokens = x.reshape(b, h * w, c).to(self.dtype or x.dtype)
-        out = linear_attention_block(tokens, self.ln_gamma, self.w_qkv, self.w_out, self.b_out,
-                                     self.heads, self.dim_head)
-        return out.reshape(b, h, w, c)
+        tokens = x.reshape(b, h * w, c).to(dt)
+        sp = self.sp_mesh
+        if sp is not None and sp.tp > 1 and (h * w) % sp.tp == 0:
+            out = sequence_sharded_linear_attention_block(
+                shard(tokens, 1, sp.tp_group), gamma, w_qkv, w_out, b_out, sp.tp_group,
+                self.heads, self.dim_head, gather_output=True)
+        else:
+            out = linear_attention_block(tokens, gamma, w_qkv, w_out, b_out, self.heads,
+                                         self.dim_head)
+        out = out.reshape(b, h, w, c)
+        return out if tp is None else shard(out, -1, tp.tp_group)
 
 
 class Attention(nn.Module):
@@ -338,7 +393,8 @@ class FrameAttention(nn.Module):
 
     def forward(self, x):
         dt = self.dtype or x.dtype
-        w_eff = (self.to_qkv_kernel[:, 2 * self.hidden:] @ self.to_out_kernel).to(dt)
+        w_qkv, w_out = whole(self, "to_qkv_kernel"), whole(self, "to_out_kernel")
+        w_eff = (w_qkv[:, 2 * self.hidden:] @ w_out).to(dt)
         return x.to(dt) @ w_eff
 
 
@@ -363,6 +419,19 @@ class UNet(nn.Module):
     bf16 ``dtype``. ``cm_conv_stages`` runs the level stages narrower than
     128 channels channel-major through K4; ``padding_mode`` ('zeros' or
     'circular') and ``self_condition`` as in the module docstring.
+
+    ``tp_mesh`` (a mesh with tp > 1; JAX's ``_tp_constrain``) splits the
+    wide stages over the tp ranks: at a level or mid stage of C >=
+    ``tp_min_width`` channels, with C and ``resnet_groups`` divisible by tp
+    (and not channel-major), what passes between its modules is the rank's
+    C/tp channels. Each ResnetBlock, and the Downsample or Upsample after
+    it, is column-parallel (the gathered input, the rank's output-channel
+    weights; K2 on groups // tp groups); a LinearAttentionBlock gathers x,
+    runs K1 alike on every rank and keeps its channels; the skip
+    concatenation gathers both halves first. Everything else runs alike on
+    every rank. ``sp_mesh`` runs the LinearAttentionBlocks
+    sequence-parallel. The parameters themselves are split by
+    ``parallel.mesh.shard_params``; a module gathers what it needs whole.
     """
 
     def __init__(self, dim: int, channels: int = 2, out_dim: Optional[int] = None,
@@ -371,7 +440,8 @@ class UNet(nn.Module):
                  frame_attention: bool = True, dtype: Optional[torch.dtype] = None,
                  fp32_head: bool = False, cm_conv_stages: bool = False,
                  sigmoid_last_channel: bool = False, padding_mode: str = "zeros",
-                 self_condition: bool = False):
+                 self_condition: bool = False, tp_mesh: Optional[Mesh] = None,
+                 tp_min_width: int = 128, sp_mesh: Optional[Mesh] = None):
         super().__init__()
         if padding_mode not in ("zeros", "circular"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}")
@@ -386,6 +456,8 @@ class UNet(nn.Module):
         self.padding_mode = padding_mode
         self.self_condition = self_condition
         self.dtype = dtype
+        self.resnet_groups = resnet_groups
+        self.tp_mesh, self.tp_min_width = tp_mesh, tp_min_width
 
         self.init_conv = Conv2dPadded(channels * (2 if self_condition else 1), dim,
                                       init_kernel_size, 1, init_kernel_size // 2, dt, pm)
@@ -413,7 +485,7 @@ class UNet(nn.Module):
                 dout,
                 add("ResnetBlock", ResnetBlock(din, dout, time_dim, g, dt, pm)),
                 add("ResnetBlock", ResnetBlock(dout, dout, time_dim, g, dt, pm)),
-                add("LinearAttentionBlock", LinearAttentionBlock(dout, *heads, dt)),
+                add("LinearAttentionBlock", LinearAttentionBlock(dout, *heads, dt, sp_mesh)),
                 add("Downsample", Downsample(dout, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         mid = dims[-1]
@@ -428,7 +500,7 @@ class UNet(nn.Module):
                 din,
                 add("ResnetBlock", ResnetBlock(2 * dout, din, time_dim, g, dt, pm)),
                 add("ResnetBlock", ResnetBlock(din, din, time_dim, g, dt, pm)),
-                add("LinearAttentionBlock", LinearAttentionBlock(din, *heads, dt)),
+                add("LinearAttentionBlock", LinearAttentionBlock(din, *heads, dt, sp_mesh)),
                 add("Upsample", Upsample(din, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         head_dt = None if fp32_head else dt
@@ -468,49 +540,88 @@ class UNet(nn.Module):
             if null_mask is not None:
                 cond = torch.where(null_mask.reshape(-1, 1, 1, 1), 0.0, cond)
             c = self.emb_conv_0
-            emb = F.gelu(_conv(cond, c.weight, c.bias, self.dtype))
+            emb = F.gelu(_conv(cond, whole(c, "weight"), whole(c, "bias"), self.dtype))
             emb = self.emb_conv_1(emb)
             c = self.combine_conv
-            x = _conv(torch.cat([x, emb.to(x.dtype)], dim=-1), c.weight, c.bias, self.dtype)
+            x = _conv(torch.cat([x, emb.to(x.dtype)], dim=-1), whole(c, "weight"),
+                      whole(c, "bias"), self.dtype)
         r = x
         t = _dense(self.time_pos_emb(time), self.time_mlp_0, self.dtype)
         t = _dense(F.gelu(t), self.time_mlp_1, self.dtype)
 
-        skips = []  # (layout "cm" or "nat", tensor)
+        tp = self.tp_mesh if self.tp_mesh is not None and self.tp_mesh.tp > 1 else None
+
+        def wide(width: int) -> bool:
+            """A stage split over tp (JAX ``_tp_constrain``'s condition)."""
+            return (tp is not None and width >= self.tp_min_width and width % tp.tp == 0
+                    and self.resnet_groups % tp.tp == 0)
+
+        def whole_act(a, split: bool):
+            """An activation whole, for work every rank does alike."""
+            return gather(a, -1, tp.tp_group, partial=False) if split else a
+
+        def cols_input(a, split: bool):
+            """An activation whole, for column-parallel work."""
+            return (gather(a, -1, tp.tp_group, partial=True) if split
+                    else enter_partial(a, tp.tp_group))
+
+        def wide_stage(a, res0, res1, attn):
+            a = res0(a, t, tp=tp)
+            return attn(res1(gather(a, -1, tp.tp_group, partial=True), t, tp=tp), tp=tp)
+
+        split = False  # whether x holds the rank's channels only
+        skips = []  # (layout "cm" or "nat", tensor, split)
         for width, res0, res1, attn, down in self.downs:
             if self._use_cm(width, x):
+                x, split = whole_act(x, split), False
                 h, w = x.shape[1:3]
                 xc = attn(res1(res0(channel_major(x), t, cm=h), t, cm=h), cm=True)
-                skips.append(("cm", xc))
+                skips.append(("cm", xc, False))
                 x = from_channel_major(xc, h, w)
+            elif wide(width):
+                x, split = wide_stage(cols_input(x, split), res0, res1, attn), True
+                skips.append(("nat", x, True))
             else:
-                x = attn(res1(res0(x, t), t))
-                skips.append(("nat", x))
+                x, split = attn(res1(res0(whole_act(x, split), t), t)), False
+                skips.append(("nat", x, False))
             if down is not None:
-                x = down(x)
+                x = down(gather(x, -1, tp.tp_group, partial=True), tp) if split else down(x)
 
-        x = self.mid_block1(x, t)
+        mid = self.downs[-1][0]
+        if wide(mid):
+            x = whole_act(self.mid_block1(cols_input(x, split), t, tp=tp), True)
+        else:
+            x = self.mid_block1(whole_act(x, split), t)
         b, h, w, c = x.shape
         x = self.mid_spatial_attn(x.reshape(b, h * w, c)).reshape(b, h, w, c)
         if self.frame_attention:
             x = self.mid_frame_attn(x)
-        x = self.mid_block2(x, t)
+        if wide(mid):
+            x, split = self.mid_block2(enter_partial(x, tp.tp_group), t, tp=tp), True
+        else:
+            x, split = self.mid_block2(x, t), False
 
         for width, res0, res1, attn, up in self.ups:
-            kind, skip = skips.pop()
+            kind, skip, skip_split = skips.pop()
             if kind == "cm" and self._use_cm(width, x):
+                x = whole_act(x, split)
                 h, w = x.shape[1:3]
                 xc = torch.cat([channel_major(x), skip], dim=1)
                 xc = attn(res1(res0(xc, t, cm=h), t, cm=h), cm=True)
-                x = from_channel_major(xc, h, w)
+                x, split = from_channel_major(xc, h, w), False
             else:
                 if kind == "cm":
                     skip = from_channel_major(skip, *x.shape[1:3])
-                x = torch.cat([x, skip], dim=-1)
-                x = attn(res1(res0(x, t), t))
+                if wide(width):
+                    x = torch.cat([cols_input(x, split), cols_input(skip, skip_split)], dim=-1)
+                    x, split = wide_stage(x, res0, res1, attn), True
+                else:
+                    x = torch.cat([whole_act(x, split), whole_act(skip, skip_split)], dim=-1)
+                    x, split = attn(res1(res0(x, t), t)), False
             if up is not None:
-                x = up(x)
+                x = up(gather(x, -1, tp.tp_group, partial=True), tp) if split else up(x)
 
+        x = whole_act(x, split)
         if self._use_cm(self.dim, x) and not self.fp32_head:
             h, w = x.shape[1:3]
             xc = torch.cat([channel_major(x), channel_major(r)], dim=1)
@@ -521,7 +632,7 @@ class UNet(nn.Module):
                 x = x.float()
             x = self.final_block(x)
         c = self.final_conv
-        x = _conv(x, c.weight, c.bias, self.head_dtype)
+        x = _conv(x, whole(c, "weight"), whole(c, "bias"), self.head_dtype)
         if self.sigmoid_last_channel:
             x = torch.cat([x[..., :-1], torch.sigmoid(x[..., -1:])], dim=-1)
         return x
@@ -538,16 +649,23 @@ def apply_with_guidance(model: UNet, x: torch.Tensor, time: torch.Tensor, cond: 
     return null_logits + (logits - null_logits) * guidance_scale
 
 
-def build_model(cfg, compute_dtype: Optional[str] = None) -> UNet:
+def build_model(cfg, compute_dtype: Optional[str] = None, mesh: Optional[Mesh] = None) -> UNet:
     """The study's UNet for a ``RunConfig`` (Darcy or mechanics).
-    ``compute_dtype`` overrides ``cfg.compute_dtype``."""
+    ``compute_dtype`` overrides ``cfg.compute_dtype``. On a ``mesh`` with tp
+    > 1, ``cfg.tp_shard_activations`` splits the wide stages and
+    ``cfg.seq_parallel_attn`` runs the linear attention sequence-parallel
+    over tp, as JAX's ``build_model``; the parameters are split by
+    ``parallel.mesh.shard_params``."""
     name = compute_dtype or cfg.compute_dtype
     if name not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute dtype {name!r}")
     dtype = torch.bfloat16 if name == "bfloat16" else None
+    tp_on = mesh is not None and mesh.tp > 1
     return UNet(dim=cfg.unet_dim, channels=cfg.model_channels, out_dim=cfg.output_channels,
                 frame_attention=cfg.frame_attention, dtype=dtype,
                 fp32_head=cfg.fp32_head and dtype is not None,
                 sigmoid_last_channel=cfg.sigmoid_last_channel,
                 padding_mode="circular" if cfg.bcs == "periodic" else "zeros",
-                self_condition=cfg.self_condition)
+                self_condition=cfg.self_condition,
+                tp_mesh=mesh if tp_on and cfg.tp_shard_activations else None,
+                sp_mesh=mesh if tp_on and cfg.seq_parallel_attn else None)

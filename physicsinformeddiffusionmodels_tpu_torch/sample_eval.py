@@ -6,7 +6,8 @@ sample, then score the samples by their physics.
         --compute-dtype float32 [--device cpu] [--seed 0] [--out DIR] \\
         [--correction-mode {none,x0,xt} --n-correction N --m-correction M] \\
         [--dynamic-threshold {on,off}] [--guidance-scale S] [--create-gif] \\
-        [--test-batches K] [--test-data-root DIR]
+        [--test-batches K] [--test-data-root DIR] [--mesh-dp D] [--mesh-tp T] \\
+        [--mesh-slices S] [--tp-shard-activations] [--seq-parallel-attn]
 
 Darcy writes ``<out>/validation/sample_statistics.csv`` (per-sample mean
 |residual| and their mean, in the format of the JAX ``sample_eval.py``) and
@@ -28,6 +29,13 @@ finished; until then ``eval_settings.json.pending`` marks the directory as
 in flight. ``--create-gif`` also writes each sample's PNGs and its
 denoising GIFs (``sample_<s>_<c>.png``, ``sample_<s>/sample_<c>.gif``); it
 needs matplotlib and imageio.
+
+Under torchrun the evaluation runs on the mesh of the mesh flags (those of
+``train``; the run's own describe its training): the mechanics sweep
+splits each batch over the data ranks when it divides (every rank draws
+the whole batch's x_init and noise and keeps its rows, so the samples equal
+the one-rank sweep's) and gathers the statistics; Darcy sampling runs alike
+on every rank; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -42,36 +50,59 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.sampling import p_sample_loop
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 from physicsinformeddiffusionmodels_tpu_torch.models.convert import torch_state_dict_from_flax
 from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet, build_model
+from physicsinformeddiffusionmodels_tpu_torch.parallel.collectives import gather_tensor
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+    Mesh,
+    is_main,
+    run_mesh,
+    shard_batch,
+    shard_params,
+)
 from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
 from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
 )
 from physicsinformeddiffusionmodels_tpu_torch.utils import viz
-from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device, set_fp32_exact
+from physicsinformeddiffusionmodels_tpu_torch.utils.platform import (
+    init_distributed,
+    launched_by_torchrun,
+    resolve_device,
+    set_fp32_exact,
+)
+
+# a run's mesh fields when no flag sets them: one rank
+_ONE_RANK = dict(mesh_dp=None, mesh_tp=1, mesh_slices=1, tp_shard_activations=False,
+                 seq_parallel_attn=False)
 
 
 def load_run(model_dir: str | Path, step: int | None = None,
              compute_dtype: str | None = None,
-             device: str | torch.device | None = None) -> tuple[RunConfig, UNet, int]:
-    """Config, EMA-weight UNet on ``device`` (in eval mode) and checkpoint step."""
+             device: str | torch.device | None = None, mesh: Mesh | None = None,
+             mesh_flags: dict | None = None) -> tuple[RunConfig, UNet, int]:
+    """Config, EMA-weight UNet on ``device`` (in eval mode) and checkpoint
+    step. The config's mesh fields are ``mesh_flags``' (one rank by
+    default), and on ``mesh`` the UNet takes their tp options and keeps its
+    rank's parameter shards."""
     dev = resolve_device(device)
     model_dir = Path(model_dir)
-    cfg = RunConfig.load(model_dir / "config.json")
+    cfg = dataclasses.replace(RunConfig.load(model_dir / "config.json"),
+                              **{**_ONE_RANK, **(mesh_flags or {})})
     ckpt_dir = model_dir / "model"
     path = ckpt_dir / f"checkpoint_{step}.msgpack" if step is not None else latest_checkpoint(ckpt_dir)
     if path is None or not Path(path).exists():
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     raw = load_checkpoint(path)
-    model = build_model(cfg, compute_dtype)
+    model = build_model(cfg, compute_dtype, mesh)
     model.load_state_dict(torch_state_dict_from_flax(raw["ema_params"] or raw["params"]))
-    return cfg, model.to(dev).eval(), int(raw["step"])
+    return cfg, shard_params(model.to(dev), mesh).eval(), int(raw["step"])
 
 
 def guided_denoise(model: UNet, physics: DarcyResidual, guidance_scale: float):
@@ -158,7 +189,7 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
              m_correction: int | None = None, dynamic_threshold: bool | None = None,
              guidance_scale: float | None = None, create_gif: bool = False,
              test_batches: int = -1, test_data_root: str | Path | None = None,
-             argv: list[str] | None = None) -> dict:
+             argv: list[str] | None = None, mesh_flags: dict | None = None) -> dict:
     """Load, sample, score and write; returns a summary dict. Darcy: the
     per-sample residuals (``res_b``) and the samples (``samples``, on the
     host), their residual median and mean, the sampling seconds and
@@ -167,10 +198,17 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
     ``test_data_root``), under ``levels``. Both: the correction and guidance
     settings, the output directory and the device. The correction,
     thresholding and guidance arguments that are not None override the run's
-    config. ``argv`` is the command line recorded in ``eval_settings.json``."""
+    config. ``argv`` is the command line recorded in ``eval_settings.json``.
+    ``mesh_flags``: the mesh fields of a run under torchrun (``train``'s
+    flags); without torchrun, flags of more than one rank raise."""
     dev = resolve_device(device)
+    if launched_by_torchrun():
+        dev = init_distributed(dev)
+    flags = {**_ONE_RANK, **(mesh_flags or {})}
+    mesh = run_mesh(dev, flags["mesh_dp"], flags["mesh_tp"], flags["mesh_slices"])
+    main = is_main(mesh)
     set_fp32_exact()
-    cfg, model, ckpt_step = load_run(model_dir, step, compute_dtype, dev)
+    cfg, model, ckpt_step = load_run(model_dir, step, compute_dtype, dev, mesh, flags)
     for name, value in (("correction_mode", correction_mode), ("N_correction", n_correction),
                         ("M_correction", m_correction),
                         ("use_dynamic_threshold", dynamic_threshold),
@@ -185,8 +223,9 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
         cfg.correction_mode, cfg.M_correction, cfg.N_correction = "none", 0, 0
     out_dir = Path(out) if out is not None else _fresh_dir(
         Path("trained_models") / cfg.name / "evaluation_torch")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    print(f"Checkpoint step {ckpt_step} from {model_dir}; sampling on {dev}")
+    if main:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        print(f"Checkpoint step {ckpt_step} from {model_dir}; sampling on {dev}")
     # the JAX sample_eval.py's keys (test_batches is its mechanics sweep's,
     # None for Darcy), then the port's own
     settings = {
@@ -199,30 +238,33 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
         "compute_dtype": compute_dtype or cfg.compute_dtype,
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+        "n_devices": dist.get_world_size() if mesh is not None else 1,
         "residual_grad_guidance": cfg.residual_grad_guidance, "diff_steps": cfg.diff_steps,
         "device": str(dev),
     }
     pending = out_dir / "eval_settings.json.pending"
-    pending.write_text(json.dumps(settings, indent=2) + "\n")
+    if main:
+        pending.write_text(json.dumps(settings, indent=2) + "\n")
     if mechanics:
         levels = eval_mechanics(cfg, model, out_dir, no_samples, test_batches, seed,
-                                test_data_root, create_gif, dev)
+                                test_data_root, create_gif, dev, mesh)
         summary = {**settings, "levels": {k: {m: v for m, v in d.items()
                                               if not isinstance(v, np.ndarray)}
                                           for k, d in levels.items()}}
         extra = {"levels": levels}
     else:
         summary, extra = _evaluate_darcy(cfg, model, out_dir, no_samples, seed, create_gif,
-                                         dev, settings)
-    (out_dir / "eval_settings.json").write_text(json.dumps(summary, indent=2) + "\n")
-    pending.unlink(missing_ok=True)
+                                         dev, settings, main)
+    if main:
+        (out_dir / "eval_settings.json").write_text(json.dumps(summary, indent=2) + "\n")
+        pending.unlink(missing_ok=True)
     return {**summary, **extra, "out_dir": out_dir}
 
 
 def _evaluate_darcy(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int, seed: int,
-                    create_gif: bool, dev: torch.device, settings: dict) -> tuple[dict, dict]:
-    """Darcy sampling, scored and written: (summary, host arrays)."""
+                    create_gif: bool, dev: torch.device, settings: dict,
+                    write: bool = True) -> tuple[dict, dict]:
+    """Darcy sampling, scored and (``write``) written: (summary, host arrays)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -232,27 +274,44 @@ def _evaluate_darcy(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
     seconds = time.perf_counter() - t0
 
     samples = samples.float().cpu().numpy()
-    write_darcy_outputs(out_dir / "validation", samples, res_b,
-                        None if history is None else history.float().cpu().numpy())
+    if write:
+        write_darcy_outputs(out_dir / "validation", samples, res_b,
+                            None if history is None else history.float().cpu().numpy())
     summary = {
         **settings,
         "residual_median": float(np.nanmedian(res_b)),
         "residual_mean": float(np.nanmean(res_b)),
         "seconds": seconds, "samples_per_s": no_samples / seconds,
     }
-    print(f"residual mean {summary['residual_mean']:.3e} "
-          f"median {summary['residual_median']:.3e}")
-    print(f"Evaluation done ({seconds:.2f} s, {summary['samples_per_s']:.2f} samples/s); "
-          f"outputs in {out_dir}")
+    if write:
+        print(f"residual mean {summary['residual_mean']:.3e} "
+              f"median {summary['residual_median']:.3e}")
+        print(f"Evaluation done ({seconds:.2f} s, {summary['samples_per_s']:.2f} samples/s); "
+              f"outputs in {out_dir}")
     return summary, {"res_b": res_b, "samples": samples}
 
 
 MECHANICS_LEVELS = ("test_level_1", "test_level_2")
 
 
+def _rows_whole(values: list, mesh: Mesh | None, split: bool, dev: torch.device) -> list:
+    """Each array of the rank's rows of a split batch gathered whole over
+    the data ranks (in rank order: the batch's), in its own dtype; the
+    arrays as they are when the batch was not split."""
+    if not split:
+        return values
+    out = []
+    for v in values:
+        a = np.asarray(v)
+        whole = gather_tensor(torch.as_tensor(a, dtype=torch.float64, device=dev), 0,
+                              mesh.data_group)
+        out.append(whole.cpu().numpy().astype(a.dtype))
+    return out
+
+
 def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
                    test_batches: int, seed: int, test_data_root: str | Path | None,
-                   create_gif: bool, dev: torch.device) -> dict:
+                   create_gif: bool, dev: torch.device, mesh: Mesh | None = None) -> dict:
     """The mechanics sweep of the JAX ``sample_eval.py``: for the
     in-distribution (``test_level_1``) and out-of-distribution
     (``test_level_2``) sets under ``<test_data_root>/test/`` (default: two
@@ -264,7 +323,9 @@ def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
     Mean row) a level, with the first batch's per-sample CSVs (and, with
     ``create_gif``, its PNGs and GIFs). Returns, a level, the per-sample
     arrays and the summary (medians, means, fallbacks, sampling and solve
-    seconds, samples/s)."""
+    seconds, samples/s). On a ``mesh`` a batch that divides over the data
+    ranks is split over them and its results gathered (the fallbacks
+    summed, the solve iterations the most of a rank's); rank 0 writes."""
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import (
         NpyFieldDataset,
         iter_batches,
@@ -277,6 +338,7 @@ def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
         write_sample_csvs,
     )
 
+    main = is_main(mesh)
     base = Path(test_data_root) if test_data_root else Path(cfg.data_dir).parent.parent
     dirs = {level: base / "test" / level / "fields" for level in MECHANICS_LEVELS}
     for level, ddir in dirs.items():
@@ -288,20 +350,28 @@ def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
     mech = MechanicsResidual(pixels_per_dim=cfg.pixels_per_dim, device=dev)
     sample_cfg = dataclasses.replace(cfg, topopt_eval=False)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    n_data = 1 if mesh is None else mesh.n_data
     out, t_start = {}, time.perf_counter()
     for level, ddir in dirs.items():
         ldir = out_dir / level
-        ldir.mkdir(parents=True, exist_ok=True)
+        if main:
+            ldir.mkdir(parents=True, exist_ok=True)
         res_l, ce_l, vf_l, fm_l = [], [], [], []
         fallback, sample_s, solve_s, iters = 0, 0.0, 0.0, []
         batches = iter_batches(NpyFieldDataset(ddir), cfg.train_batch_size)
         for bi, batch in enumerate(batches):
             b = torch.as_tensor(batch, device=dev)
+            split = n_data > 1 and b.shape[0] % n_data == 0
+            rows = None
+            if split:
+                k = b.shape[0] // n_data
+                rows = (b.shape[0], slice(mesh.data_rank * k, (mesh.data_rank + 1) * k))
+                b = shard_batch(b, mesh)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             sample = draw_sample(sample_cfg, model, b, mech, gen,
-                                 save_history=create_gif and bi == 0)
+                                 save_history=create_gif and bi == 0, rows=rows)
             res_b = sample.residual.abs().mean(dim=1).cpu().numpy()
             t1 = time.perf_counter()
             sample = sample._replace(topopt=topopt_eval_of_final(mech, sample.final, b))
@@ -309,36 +379,53 @@ def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
             t2 = time.perf_counter()
             topopt, fm = topopt_metrics(mech, sample, b)
             sample_s, solve_s = sample_s + (t1 - t0), solve_s + (t2 - t1)
-            fallback += topopt["n_solve_fallback"]
+            counts = torch.tensor([topopt["n_solve_fallback"], iters[-1]], device=dev)
+            if split:  # the whole batch's fallbacks, and its slowest solve
+                dist.all_reduce(counts[:1], group=mesh.data_group)
+                dist.all_reduce(counts[1:], op=dist.ReduceOp.MAX, group=mesh.data_group)
+            fallback += int(counts[0])
+            iters[-1] = int(counts[1])
+            res_b, ce_b, vf_b, fm = _rows_whole(
+                [res_b, topopt["rel_CE_error_full_batch"], topopt["vf_error_full_batch"], fm],
+                mesh, split, dev)
             res_l.append(res_b)
-            ce_l.append(topopt["rel_CE_error_full_batch"])
-            vf_l.append(topopt["vf_error_full_batch"])
+            ce_l.append(ce_b)
+            vf_l.append(vf_b)
             fm_l.append(fm)
             if bi == 0:
-                finals = sample.final.float().cpu().numpy()
-                write_sample_csvs(ldir, finals, no_samples)
+                finals, comp = _rows_whole([sample.final.float().cpu().numpy(),
+                                            sample.compliance.cpu().numpy()], mesh, split, dev)
+                history = None
                 if create_gif:
-                    _write_mechanics_images(ldir, finals, sample.history.float().cpu().numpy(),
-                                            res_b, sample.compliance.cpu().numpy(), no_samples)
+                    history = sample.history.float().cpu().numpy()
+                    if split:
+                        history = np.swapaxes(_rows_whole([np.swapaxes(history, 0, 1)], mesh,
+                                                          split, dev)[0], 0, 1)
+                if main:
+                    write_sample_csvs(ldir, finals, no_samples)
+                    if create_gif:
+                        _write_mechanics_images(ldir, finals, history, res_b, comp, no_samples)
             if test_batches != -1 and bi + 1 >= test_batches:
                 break
         res, ce, vfe, fm = (np.concatenate(v) for v in (res_l, ce_l, vf_l, fm_l))
-        for name, values in (("residuals", res), ("rel_CE_error", ce), ("rel_vf_error", vfe),
-                             ("fm_error", fm)):
-            np.savetxt(ldir / f"{name}.csv", values, delimiter=",")
-        with open(ldir / "sample_statistics.csv", "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["Sample Index", "Residuals (abs)", "rel_CE_error", "rel_vf_error", "fm"])
-            for i in range(len(res)):
-                w.writerow([i, res[i], ce[i], vfe[i], fm[i]])
-            w.writerow(["Mean", np.nanmean(res), np.nanmean(ce), np.nanmean(vfe),
-                        np.nanmean(fm)])
-        print(f"On {level}:")
-        print("CE median error:", np.median(ce), "CE mean error:", np.mean(ce),
-              "CE max error:", np.max(ce), "VF mean error:", np.mean(vfe),
-              "FM mean error:", np.mean(fm), "Mean residual:", np.mean(res),
-              "Median residual:", np.median(res),
-              f"(exact-solve fallbacks: {fallback}/{len(ce)})")
+        if main:
+            for name, values in (("residuals", res), ("rel_CE_error", ce),
+                                 ("rel_vf_error", vfe), ("fm_error", fm)):
+                np.savetxt(ldir / f"{name}.csv", values, delimiter=",")
+            with open(ldir / "sample_statistics.csv", "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["Sample Index", "Residuals (abs)", "rel_CE_error", "rel_vf_error",
+                            "fm"])
+                for i in range(len(res)):
+                    w.writerow([i, res[i], ce[i], vfe[i], fm[i]])
+                w.writerow(["Mean", np.nanmean(res), np.nanmean(ce), np.nanmean(vfe),
+                            np.nanmean(fm)])
+            print(f"On {level}:")
+            print("CE median error:", np.median(ce), "CE mean error:", np.mean(ce),
+                  "CE max error:", np.max(ce), "VF mean error:", np.mean(vfe),
+                  "FM mean error:", np.mean(fm), "Mean residual:", np.mean(res),
+                  "Median residual:", np.median(res),
+                  f"(exact-solve fallbacks: {fallback}/{len(ce)})")
         out[level] = {
             "res_b": res, "rel_CE": ce, "rel_vf": vfe, "fm": fm,
             "n": int(len(ce)), "rel_CE_median": float(np.median(ce)),
@@ -348,7 +435,8 @@ def eval_mechanics(cfg: RunConfig, model: UNet, out_dir: Path, no_samples: int,
             "solve_iterations": iters, "sampling_seconds": sample_s,
             "samples_per_s": len(ce) / sample_s, "solve_seconds": solve_s,
         }
-    print(f"Evaluation done ({time.perf_counter() - t_start:.2f} s); outputs in {out_dir}")
+    if main:
+        print(f"Evaluation done ({time.perf_counter() - t_start:.2f} s); outputs in {out_dir}")
     return out
 
 
@@ -365,6 +453,8 @@ def _write_mechanics_images(ldir: Path, finals: np.ndarray, history: np.ndarray,
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    from physicsinformeddiffusionmodels_tpu_torch.train import add_mesh_args
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", required=True)
     ap.add_argument("--step", type=int, default=None)
@@ -389,10 +479,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="mechanics: batches a test level (-1: all)")
     ap.add_argument("--test-data-root", default=None,
                     help="mechanics: the directory holding test/test_level_{1,2}/fields")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
+    from physicsinformeddiffusionmodels_tpu_torch.train import mesh_kwargs
+
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     threshold = None if args.dynamic_threshold is None else args.dynamic_threshold == "on"
@@ -401,7 +494,7 @@ def main(argv=None) -> None:
              n_correction=args.n_correction, m_correction=args.m_correction,
              dynamic_threshold=threshold, guidance_scale=args.guidance_scale,
              create_gif=args.create_gif, test_batches=args.test_batches,
-             test_data_root=args.test_data_root, argv=argv)
+             test_data_root=args.test_data_root, argv=argv, mesh_flags=mesh_kwargs(args))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,12 @@ the mechanics study in ``train_mechanics`` (``--gov-eqs mechanics``).
     python -m physicsinformeddiffusionmodels_tpu_torch.train --iterations N \\
         [--gov-eqs {darcy,mechanics}] [--batch-size B] [--data-dir DIR --valid-data-dir DIR] \\
         [--device cpu] [--resume] [--compute-dtype {float32,bfloat16}] [--fp32-head] \\
-        [--x0-estimation {mean,sample}] [--residual-grad-guidance] [--chunk-steps K]
+        [--x0-estimation {mean,sample}] [--residual-grad-guidance] [--chunk-steps K] \\
+        [--mesh-dp D] [--mesh-tp T] [--mesh-slices S] [--tp-shard-activations] \\
+        [--seq-parallel-attn]
+
+    torchrun --nproc-per-node N -m physicsinformeddiffusionmodels_tpu_torch.train \\
+        --mesh-dp N ...            (N GPUs, NCCL; with --device cpu, N processes, gloo)
 
 Physics-informed diffusion training of ``UNet(dim=32, channels=2)`` on the
 Darcy data (``data/darcy_generator.py`` writes it), in the config's compute
@@ -30,6 +35,21 @@ SIGTERM/SIGINT save a full checkpoint and stop; ``--resume`` continues from
 the newest one. Outputs go to ``<output_dir>/<name>/``. With ``--gov-eqs
 mechanics`` the run takes the mechanics driver's loss weights and data
 directories (``train_mechanics.MECHANICS_DEFAULTS``) where no flag sets them.
+
+Under torchrun each process joins the process group (NCCL on its own GPU,
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and the run takes JAX's
+mesh flags: ``--mesh-dp`` ranks split the batch (every rank draws the
+global batch and keeps its rows), ``--mesh-tp`` ranks split the
+parameters, and with ``--tp-shard-activations`` the wide stages' channels,
+or with ``--seq-parallel-attn`` the linear attention's tokens;
+``--mesh-slices`` adds a leading data axis (``parallel/mesh.py``). A step
+gives the one-rank step's numbers up to the order of the gradient sum;
+the periodic evaluation and sampling run alike on every rank and give the
+one-rank run's numbers; rank 0 alone writes ``metrics.csv``, the samples,
+``config.json`` and the checkpoints, which hold whole arrays whatever the
+mesh. ``--chunk-steps`` on a mesh steps per dispatch (no graph), with a
+warning, as JAX's driver does. Mesh flags that ask for more than one rank
+without torchrun raise.
 """
 
 from __future__ import annotations
@@ -58,6 +78,13 @@ from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
 )
 from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
 from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model as _build_unet
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+    Mesh,
+    any_rank,
+    is_main,
+    run_mesh,
+    shard_params,
+)
 from physicsinformeddiffusionmodels_tpu_torch.physics.darcy import DarcyResidual
 from physicsinformeddiffusionmodels_tpu_torch.sample_eval import (
     sample_darcy,
@@ -75,7 +102,12 @@ from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
     make_optimizer,
     resident_train_step,
 )
-from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device, set_fp32_exact
+from physicsinformeddiffusionmodels_tpu_torch.utils.platform import (
+    init_distributed,
+    launched_by_torchrun,
+    resolve_device,
+    set_fp32_exact,
+)
 
 
 # metrics.csv columns, in the JAX driver's order
@@ -84,17 +116,39 @@ _COLUMNS = ["step", "time", "loss", "loss_data", "residual_mean_abs", "loss_test
             "residual_median_abs_samples"]
 
 
-def check_supported(cfg: RunConfig) -> None:
-    """Raise for the options of the JAX driver that the port does not train yet."""
-    if cfg.mesh_tp > 1 or cfg.mesh_slices > 1 or (cfg.mesh_dp or 1) > 1:
-        raise NotImplementedError("multi-device training is not ported yet: ROADMAP Queue 1 item 11")
-
-
-def build_model(cfg: RunConfig) -> UNet:
+def build_model(cfg: RunConfig, mesh: Mesh | None = None) -> UNet:
     """The study's UNet for ``cfg``, in ``cfg.compute_dtype`` (with the fp32
-    head when ``cfg.fp32_head``)."""
-    check_supported(cfg)
-    return _build_unet(cfg)
+    head when ``cfg.fp32_head``), its tp options on ``mesh``."""
+    return _build_unet(cfg, mesh=mesh)
+
+
+def join_run(cfg: RunConfig, device=None) -> tuple[torch.device, Mesh | None]:
+    """The run's device and mesh: under torchrun the process joins the
+    process group first (``utils.platform.init_distributed``); without it
+    there is no mesh, and mesh flags of more than one rank raise."""
+    dev = resolve_device(device)
+    if launched_by_torchrun():
+        dev = init_distributed(dev)
+    mesh = run_mesh(dev, cfg.mesh_dp, cfg.mesh_tp, cfg.mesh_slices)
+    if mesh is not None and cfg.chunk_steps > 1 and is_main(mesh):
+        print(f"warning: --chunk-steps {cfg.chunk_steps} replays no CUDA graph on a mesh; "
+              "stepping per dispatch", flush=True)
+    return dev, mesh
+
+
+def start_model(cfg: RunConfig, dev: torch.device, mesh: Mesh | None):
+    """The run's seeded UNet on ``dev`` with its parameters split over
+    ``mesh``, and its optimizer over them."""
+    torch.manual_seed(cfg.seed)
+    model = build_model(cfg, mesh).to(dev)
+    if is_main(mesh):
+        print(f"Number of trainable parameters: {sum(p.numel() for p in model.parameters())}")
+        if mesh is not None:
+            print(f"mesh: {mesh.shape}", flush=True)
+    shard_params(model, mesh)
+    opt = make_optimizer(model, cfg.lr, cfg.grad_clip, cfg.lr_schedule, cfg.train_iterations,
+                         cfg.lr_final_frac, mesh)
+    return model, opt
 
 
 def make_physics(cfg: RunConfig, device) -> DarcyResidual:
@@ -123,7 +177,6 @@ def build_darcy_loss_fn(sched: DiffusionSchedule, physics: DarcyResidual, cfg: R
     model on the original noisy input x_t at the ladder's times: only the
     DDIM algebra chains, the model input does not. The chain's first call
     is the data loss's prediction."""
-    check_supported(cfg)
     weights = LossWeights(cfg.c_data, cfg.c_residual, cfg.c_ineq, cfg.lambda_opt)
 
     def loss_fn(model, batch, t, noise, null_mask=None):
@@ -162,41 +215,40 @@ def eval_loss(loss_fn, model, batch: torch.Tensor, n_steps: int, generator: torc
 
 
 def run_darcy(cfg: RunConfig, device=None):
-    """Train per ``cfg``; returns the final ``TrainState``."""
-    check_supported(cfg)
+    """Train per ``cfg``; returns the final ``TrainState``. Under torchrun,
+    on the mesh of ``cfg``'s mesh fields (``join_run``)."""
     cfg.validate_chunking()
-    dev = resolve_device(device)
+    dev, mesh = join_run(cfg, device)
+    main = is_main(mesh)
     set_fp32_exact()
     out_dir = Path(cfg.output_dir) / cfg.name
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.json").write_text(cfg.to_json())
+    if main:
+        (out_dir / "config.json").write_text(cfg.to_json())
 
     ds = load_darcy_dataset(cfg.data_dir)
     ds_valid = load_darcy_dataset(cfg.valid_data_dir)
-    print(f"train samples: {len(ds)}, valid: {len(ds_valid)}")
+    if main:
+        print(f"train samples: {len(ds)}, valid: {len(ds_valid)}")
     dl_valid = cycle_batches(ds_valid, min(cfg.train_batch_size, len(ds_valid)))
     data = torch.as_tensor(ds.stacked(), device=dev)
 
     sched = create_schedule(cfg.diff_steps)
     physics = make_physics(cfg, dev)
-    torch.manual_seed(cfg.seed)
-    model = build_model(cfg).to(dev)
-    print(f"Number of trainable parameters: {sum(p.numel() for p in model.parameters())}")
-    opt = make_optimizer(model, cfg.lr, cfg.grad_clip, cfg.lr_schedule, cfg.train_iterations,
-                         cfg.lr_final_frac)
+    model, opt = start_model(cfg, dev, mesh)
     state = create_train_state(model, opt)
     start_it = 0
     if cfg.resume:
-        state, start_it = restore_train_state(out_dir / "model", state)
+        state, start_it = restore_train_state(out_dir / "model", state, mesh)
     loss_fn = build_darcy_loss_fn(sched, physics, cfg)
 
-    logger = MetricsLogger(out_dir)
+    logger = MetricsLogger(out_dir) if main else None
     should_stop = install_graceful_stop()
     step_gen = torch.Generator(device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + start_it)
     chunk = cfg.chunk_steps
     graphed = (GraphedTrainStep(state, loss_fn, cfg.ema_decay, cfg.ema_start)
-               if chunk > 1 and dev.type == "cuda" else None)
+               if chunk > 1 and dev.type == "cuda" and mesh is None else None)
 
     def step(graph):
         return resident_train_step(state, loss_fn, data, cfg.train_batch_size, cfg.diff_steps,
@@ -216,7 +268,7 @@ def run_darcy(cfg: RunConfig, device=None):
             it += chunk - 1
         else:
             aux = step(None)
-        if it % cfg.log_freq == 0:
+        if it % cfg.log_freq == 0 and main:
             logger.log({"loss": aux.loss.detach().clone(),
                         "loss_data": aux.data_loss.detach().clone(),
                         "residual_mean_abs": aux.residual_mean_abs.detach().clone()}, step=it)
@@ -224,31 +276,39 @@ def run_darcy(cfg: RunConfig, device=None):
             vb = torch.as_tensor(next(dl_valid), device=dev)
             aux_t = eval_loss(loss_fn, state.ema, vb, cfg.diff_steps, eval_gen,
                               null_cond_prob(cfg))
-            print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
-                  f"res|_train={aux.residual_mean_abs.item():.3e} ({time.time() - t0:.0f}s)",
-                  flush=True)
-            logger.log({"loss_test": aux_t.loss, "loss_data_test": aux_t.data_loss,
-                        "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
-            logger.flush(_COLUMNS)
+            if main:
+                print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
+                      f"res|_train={aux.residual_mean_abs.item():.3e} "
+                      f"({time.time() - t0:.0f}s)", flush=True)
+                logger.log({"loss_test": aux_t.loss, "loss_data_test": aux_t.data_loss,
+                            "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
+                logger.flush(_COLUMNS)
         if (it % cfg.sample_freq == 0 and it > 0) or it == cfg.train_iterations:
             samples, residual, _ = sample_darcy(cfg, state.ema, cfg.no_samples,
                                                 cfg.seed + it, dev)
             res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
-            logger.log({"residual_mean_abs_samples": float(np.nanmean(res_b)),
-                        "residual_median_abs_samples": float(np.nanmedian(res_b))}, step=it)
-            write_darcy_outputs(out_dir / "training" / f"step_{it}",
-                                samples.cpu().numpy(), res_b)
+            if main:
+                logger.log({"residual_mean_abs_samples": float(np.nanmean(res_b)),
+                            "residual_median_abs_samples": float(np.nanmedian(res_b))},
+                           step=it)
+                write_darcy_outputs(out_dir / "training" / f"step_{it}",
+                                    samples.cpu().numpy(), res_b)
             # intermediate saves leave the optimizer state out; the final one keeps it
             save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
-                            optimizer=opt if it == cfg.train_iterations else None, config=cfg)
-            print(f"it {it}: sampled, residual mean {np.nanmean(res_b):.3e}", flush=True)
-        if should_stop():
+                            optimizer=opt if it == cfg.train_iterations else None, config=cfg,
+                            mesh=mesh)
+            if main:
+                print(f"it {it}: sampled, residual mean {np.nanmean(res_b):.3e}", flush=True)
+        # on a mesh the ranks agree on a stop (a host-device sync) at log steps only
+        if (mesh is None or it % cfg.log_freq == 0) and any_rank(should_stop(), mesh, dev):
             save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
-                            optimizer=opt, config=cfg)
-            print(f"it {it}: checkpoint saved on shutdown request", flush=True)
+                            optimizer=opt, config=cfg, mesh=mesh)
+            if main:
+                print(f"it {it}: checkpoint saved on shutdown request", flush=True)
             break
         it += 1
-    logger.flush(_COLUMNS)
+    if main:
+        logger.flush(_COLUMNS)
     return state
 
 
@@ -282,7 +342,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint of this run name")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
+
+
+def add_mesh_args(ap: argparse.ArgumentParser) -> None:
+    """JAX's five mesh flags (ranks come from torchrun)."""
+    ap.add_argument("--mesh-dp", type=int, default=None,
+                    help="data-parallel mesh size (default: the world size / tp)")
+    ap.add_argument("--mesh-tp", type=int, default=None,
+                    help="tensor-parallel mesh size (default 1)")
+    ap.add_argument("--mesh-slices", type=int, default=None,
+                    help="a leading data-parallel axis of this many blocks of ranks (default 1)")
+    ap.add_argument("--tp-shard-activations", action="store_true",
+                    help="with --mesh-tp>1: split the wide stages' channels over 'tp'")
+    ap.add_argument("--seq-parallel-attn", action="store_true",
+                    help="with --mesh-tp>1: sequence-parallel linear attention over 'tp'")
+
+
+def mesh_kwargs(args: argparse.Namespace) -> dict:
+    """The RunConfig fields of the mesh flags that were given."""
+    kw = {k: getattr(args, k) for k in ("mesh_dp", "mesh_tp", "mesh_slices")
+          if getattr(args, k) is not None}
+    kw.update({k: True for k in ("tp_shard_activations", "seq_parallel_attn")
+               if getattr(args, k)})
+    return kw
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
@@ -311,6 +395,7 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         kw["residual_grad_guidance"] = True
     if args.resume:
         kw["resume"] = True
+    kw.update(mesh_kwargs(args))
     return RunConfig(**kw)
 
 

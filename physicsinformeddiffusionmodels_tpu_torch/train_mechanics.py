@@ -4,7 +4,9 @@
     python -m physicsinformeddiffusionmodels_tpu_torch.train_mechanics --iterations N \\
         [--batch-size B] [--unet-dim D] [--data-dir DIR --valid-data-dir DIR] \\
         [--output-dir DIR] [--device cpu] [--resume] [--compute-dtype {float32,bfloat16}] \\
-        [--fp32-head] [--x0-estimation {mean,sample}] [--chunk-steps K]
+        [--fp32-head] [--x0-estimation {mean,sample}] [--chunk-steps K] \\
+        [--mesh-dp D] [--mesh-tp T] [--mesh-slices S] [--tp-shard-activations] \\
+        [--seq-parallel-attn]
 
 (or ``python -m physicsinformeddiffusionmodels_tpu_torch.train --gov-eqs
 mechanics ...``). Conditional physics-informed diffusion over (u1, u2, rho)
@@ -26,7 +28,10 @@ go to ``metrics.csv`` (the solves checked on the host by
 ``topopt_eval_checked``), their fields to CSVs, and the weights to a
 checkpoint in Flax's bytes: params and EMA only, the final one (and one on
 SIGTERM/SIGINT) with Adam's state too, so ``--resume`` continues exactly.
-The JAX driver's mesh options are not ported (ROADMAP Queue 1 item 11).
+Under torchrun the run takes the mesh flags as ``train`` does (the
+mechanics UNet's wide stages are every level at dim 128; ``--mesh-tp 2
+--tp-shard-activations`` halves each rank's parameters, Adam state and
+EMA); every rank samples alike and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from physicsinformeddiffusionmodels_tpu_torch.data.datasets import NpyFieldDatas
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.losses import LossWeights, pidm_loss
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.sampling import (
     Noise,
+    RowNoise,
     ddim_sample_x0,
     p_sample_loop,
 )
@@ -51,9 +57,10 @@ from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     create_schedule,
 )
-from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet, build_model
+from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
 from physicsinformeddiffusionmodels_tpu_torch.ops.connected_components import floating_material
 from physicsinformeddiffusionmodels_tpu_torch.ops.reshape import resize_bilinear
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import any_rank, is_main
 from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
     MechanicsBatch,
     MechanicsResidual,
@@ -68,11 +75,10 @@ from physicsinformeddiffusionmodels_tpu_torch.training.shutdown import install_g
 from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
     GraphedTrainStep,
     create_train_state,
-    make_optimizer,
     resident_train_step,
 )
 from physicsinformeddiffusionmodels_tpu_torch.utils import viz
-from physicsinformeddiffusionmodels_tpu_torch.utils.platform import resolve_device, set_fp32_exact
+from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
 
 # the JAX mechanics driver's settings that differ from RunConfig's defaults
 MECHANICS_DEFAULTS = dict(c_ineq=1e-3, lambda_opt=1e-6,
@@ -183,12 +189,17 @@ def topopt_eval_of_final(mech: MechanicsResidual, final: torch.Tensor,
 
 
 def draw_sample(cfg: RunConfig, model: UNet, batch: torch.Tensor, mech: MechanicsResidual,
-                generator: torch.Generator, save_history: bool = False) -> MechanicsSample:
+                generator: torch.Generator, save_history: bool = False,
+                rows: Optional[tuple[int, slice]] = None) -> MechanicsSample:
     """``sample_mechanics`` with x_init and every step's noise drawn from
-    ``generator`` (on the batch's device)."""
-    shape = (batch.shape[0], cfg.pixels_per_dim + 1, cfg.pixels_per_dim + 1, SOLUTION_CHANNELS)
-    x_init = torch.randn(shape, generator=generator, device=batch.device)
-    return sample_mechanics(cfg, model, batch, x_init, generator, mech, save_history)
+    ``generator`` (on the batch's device). ``rows`` = (n, slice): ``batch``
+    is that slice of a batch of n, whose draws are made whole and cut to
+    it, so its samples equal those rows of the whole batch's."""
+    n, keep = rows or (batch.shape[0], slice(None))
+    shape = (n, cfg.pixels_per_dim + 1, cfg.pixels_per_dim + 1, SOLUTION_CHANNELS)
+    x_init = torch.randn(shape, generator=generator, device=batch.device)[keep]
+    noise = generator if rows is None else RowNoise(generator, n, keep)
+    return sample_mechanics(cfg, model, batch, x_init, noise, mech, save_history)
 
 
 def topopt_metrics(mech: MechanicsResidual, sample: MechanicsSample,
@@ -207,42 +218,41 @@ def write_sample_csvs(step_dir: Path, finals: np.ndarray, n: int) -> None:
 
 
 def run_mechanics(cfg: RunConfig, device=None):
-    """Train per ``cfg``; returns the final ``TrainState``."""
-    from physicsinformeddiffusionmodels_tpu_torch.train import check_supported, eval_loss
+    """Train per ``cfg``; returns the final ``TrainState``. Under torchrun,
+    on the mesh of ``cfg``'s mesh fields (``train.join_run``)."""
+    from physicsinformeddiffusionmodels_tpu_torch.train import eval_loss, join_run, start_model
 
-    check_supported(cfg)
     cfg.validate_chunking()
-    dev = resolve_device(device)
+    dev, mesh = join_run(cfg, device)
+    main = is_main(mesh)
     set_fp32_exact()
     out_dir = Path(cfg.output_dir) / cfg.name
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "config.json").write_text(cfg.to_json())
+    if main:
+        (out_dir / "config.json").write_text(cfg.to_json())
 
     ds, ds_valid = NpyFieldDataset(cfg.data_dir), NpyFieldDataset(cfg.valid_data_dir)
-    print(f"train samples: {len(ds)}, valid: {len(ds_valid)}")
+    if main:
+        print(f"train samples: {len(ds)}, valid: {len(ds_valid)}")
     dl_valid = cycle_batches(ds_valid, min(cfg.train_batch_size, len(ds_valid)))
     data = torch.as_tensor(ds.stacked(), device=dev)
 
     sched = create_schedule(cfg.diff_steps)
     mech = MechanicsResidual(pixels_per_dim=cfg.pixels_per_dim, device=dev)
-    torch.manual_seed(cfg.seed)
-    model = build_model(cfg).to(dev)
-    print(f"Number of trainable parameters: {sum(p.numel() for p in model.parameters())}")
-    opt = make_optimizer(model, cfg.lr, cfg.grad_clip, cfg.lr_schedule, cfg.train_iterations,
-                         cfg.lr_final_frac)
+    model, opt = start_model(cfg, dev, mesh)
     state = create_train_state(model, opt)
     start_it = 0
     if cfg.resume:
-        state, start_it = restore_train_state(out_dir / "model", state)
+        state, start_it = restore_train_state(out_dir / "model", state, mesh)
     loss_fn = build_mechanics_loss_fn(sched, mech, cfg)
 
-    logger = MetricsLogger(out_dir)
+    logger = MetricsLogger(out_dir) if main else None
     should_stop = install_graceful_stop()
     step_gen = torch.Generator(device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + start_it)
     chunk = cfg.chunk_steps
     graphed = (GraphedTrainStep(state, loss_fn, cfg.ema_decay, cfg.ema_start)
-               if chunk > 1 and dev.type == "cuda" else None)
+               if chunk > 1 and dev.type == "cuda" and mesh is None else None)
 
     def step(graph):
         return resident_train_step(state, loss_fn, data, cfg.train_batch_size, cfg.diff_steps,
@@ -260,7 +270,7 @@ def run_mechanics(cfg: RunConfig, device=None):
             it += chunk - 1
         else:
             aux = step(None)
-        if it % cfg.log_freq == 0:
+        if it % cfg.log_freq == 0 and main:
             logger.log({"loss": aux.loss.clone(), "loss_data": aux.data_loss.clone(),
                         "residual_mean_abs": aux.residual_mean_abs.clone(),
                         "loss_inequality": aux.ineq_mean.clone(),
@@ -269,44 +279,53 @@ def run_mechanics(cfg: RunConfig, device=None):
             vb = torch.as_tensor(next(dl_valid), device=dev)
             aux_t = eval_loss(loss_fn, state.ema, vb, cfg.diff_steps, eval_gen,
                               noise_channels=SOLUTION_CHANNELS)
-            print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
-                  f"res={aux.residual_mean_abs.item():.3e} ({time.time() - t0:.0f}s)",
-                  flush=True)
-            logger.log({"loss_test": aux_t.loss,
-                        "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
-            logger.flush(COLUMNS)
+            if main:
+                print(f"it {it}: loss={aux.loss.item():.3e} test={aux_t.loss.item():.3e} "
+                      f"res={aux.residual_mean_abs.item():.3e} ({time.time() - t0:.0f}s)",
+                      flush=True)
+                logger.log({"loss_test": aux_t.loss,
+                            "residual_mean_abs_test": aux_t.residual_mean_abs}, step=it)
+                logger.flush(COLUMNS)
         if (it % cfg.sample_freq == 0 and it > 0) or it == cfg.train_iterations:
             vb = torch.as_tensor(next(dl_valid)[:cfg.no_samples], device=dev)
             gen = torch.Generator(device=dev).manual_seed(cfg.seed + it)
             sample = draw_sample(cfg, state.ema, vb, mech, gen)
-            res_b = sample.residual.abs().mean(dim=1).cpu().numpy()
-            metrics = {"residual_mean_abs_samples": float(np.nanmean(res_b)),
-                       "residual_median_abs_samples": float(np.nanmedian(res_b))}
-            if cfg.topopt_eval:
-                topopt, fm = topopt_metrics(mech, sample, vb)
-                metrics.update(rel_CE_error=float(np.nanmean(topopt["rel_CE_error_full_batch"])),
-                               rel_vf_error=float(np.nanmean(topopt["vf_error_full_batch"])),
-                               fm_error=float(fm.mean()),
-                               n_solve_fallback=topopt["n_solve_fallback"])
-            logger.log(metrics, step=it)
-            write_sample_csvs(out_dir / "training" / f"step_{it}",
-                              sample.final.float().cpu().numpy(), cfg.no_samples)
+            if main:
+                res_b = sample.residual.abs().mean(dim=1).cpu().numpy()
+                metrics = {"residual_mean_abs_samples": float(np.nanmean(res_b)),
+                           "residual_median_abs_samples": float(np.nanmedian(res_b))}
+                if cfg.topopt_eval:
+                    topopt, fm = topopt_metrics(mech, sample, vb)
+                    metrics.update(
+                        rel_CE_error=float(np.nanmean(topopt["rel_CE_error_full_batch"])),
+                        rel_vf_error=float(np.nanmean(topopt["vf_error_full_batch"])),
+                        fm_error=float(fm.mean()), n_solve_fallback=topopt["n_solve_fallback"])
+                logger.log(metrics, step=it)
+                write_sample_csvs(out_dir / "training" / f"step_{it}",
+                                  sample.final.float().cpu().numpy(), cfg.no_samples)
             # intermediate saves leave the optimizer state out (at dim 128 it
             # doubles the file to 2.1 GB); the final one keeps it
             save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
-                            optimizer=opt if it == cfg.train_iterations else None, config=cfg)
-            print(f"it {it}: sampled; {metrics}", flush=True)
-        if should_stop():
+                            optimizer=opt if it == cfg.train_iterations else None, config=cfg,
+                            mesh=mesh)
+            if main:
+                print(f"it {it}: sampled; {metrics}", flush=True)
+        # on a mesh the ranks agree on a stop (a host-device sync) at log steps only
+        if (mesh is None or it % cfg.log_freq == 0) and any_rank(should_stop(), mesh, dev):
             save_checkpoint(out_dir / "model", it, model=state.model, ema=state.ema,
-                            optimizer=opt, config=cfg)
-            print(f"it {it}: checkpoint saved on shutdown request", flush=True)
+                            optimizer=opt, config=cfg, mesh=mesh)
+            if main:
+                print(f"it {it}: checkpoint saved on shutdown request", flush=True)
             break
         it += 1
-    logger.flush(COLUMNS)
+    if main:
+        logger.flush(COLUMNS)
     return state
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    from physicsinformeddiffusionmodels_tpu_torch.train import add_mesh_args
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--name", default="mech_run")
     ap.add_argument("--iterations", type=int, default=600_000)
@@ -335,10 +354,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="with bf16 compute: the final block and 1x1 conv in fp32")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
 
 
 def config_from_args(a: argparse.Namespace) -> RunConfig:
+    from physicsinformeddiffusionmodels_tpu_torch.train import mesh_kwargs
+
     kw = dict(MECHANICS_DEFAULTS, gov_eqs="mechanics", name=a.name,
               train_iterations=a.iterations, train_batch_size=a.batch_size,
               pixels_per_dim=a.pixels_per_dim, unet_dim=a.unet_dim, data_dir=a.data_dir,
@@ -351,6 +373,7 @@ def config_from_args(a: argparse.Namespace) -> RunConfig:
                          ("compute_dtype", "compute_dtype"), ("seed", "seed")):
         if getattr(a, k_arg) is not None:
             kw[k_cfg] = getattr(a, k_arg)
+    kw.update(mesh_kwargs(a))
     return RunConfig(**kw)
 
 

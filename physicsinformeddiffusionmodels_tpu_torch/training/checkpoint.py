@@ -12,6 +12,11 @@ in the Flax tree layout (``{"params": {...}}``, the inverse of
 ``models/convert.py``), so both packages' ``sample_eval`` read it, and
 ``opt_state`` in the port's own layout: Adam's moments and step count per
 parameter name, under string keys (Flax's reader refuses others).
+
+On a mesh with tp > 1 the file still holds whole arrays: a save gathers
+the tp shards of the weights, the EMA and Adam's moments (every rank takes
+part) and rank 0 alone writes; a restore reads on every rank and keeps
+each rank's shards. A checkpoint of any mesh thus restores on any other.
 """
 
 from __future__ import annotations
@@ -25,6 +30,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_state,
+    is_main,
+    shard_state,
+    sharded_dims,
+)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -268,24 +281,36 @@ def flax_params_from_torch(state_dict: dict) -> dict:
     return {"params": tree}
 
 
-def _adam_state(model: torch.nn.Module, optimizer) -> dict:
-    """Adam's per-parameter state under the parameters' names, and the
-    optimizer's schedule count."""
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _adam_state(model: torch.nn.Module, optimizer, mesh: Optional[Mesh] = None) -> dict:
+    """Adam's per-parameter state under the parameters' names (the moments
+    of a tp-split parameter gathered whole), and the optimizer's schedule
+    count."""
     state = optimizer.state_dict()["state"]
+    dims = sharded_dims(model)
     out = {}
     for i, (name, _) in enumerate(n for n in model.named_parameters() if n[1].requires_grad):
         if i in state:
+            entry = dict(state[i])
+            if name in dims:
+                entry.update(gather_state({k: entry[k] for k in _MOMENTS},
+                                          dict.fromkeys(_MOMENTS, dims[name]), mesh))
             out[name] = {k: np.asarray(v.detach().cpu().numpy()) if torch.is_tensor(v) else v
-                         for k, v in state[i].items()}
+                         for k, v in entry.items()}
     return {"format": "torch.optim.Adam", "state": out, "count": optimizer.count}
 
 
-def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict, count: int) -> None:
-    """Load Adam's state and the schedule count; ``count`` is used when the
-    checkpoint predates saving it."""
+def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict, count: int,
+                     mesh: Optional[Mesh] = None) -> None:
+    """Load Adam's state (each rank's part of a tp-split parameter's
+    moments) and the schedule count; ``count`` is used when the checkpoint
+    predates saving it."""
     if saved.get("format") != "torch.optim.Adam":
         raise ValueError(f"unknown optimizer state format {saved.get('format')!r}")
     device = next(model.parameters()).device
+    dims = sharded_dims(model)
     state = {}
     for i, (name, _) in enumerate(n for n in model.named_parameters() if n[1].requires_grad):
         if name in saved["state"]:
@@ -293,6 +318,9 @@ def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict, count: int)
             # Adam keeps its step count on the host unless capturable/fused
             state[i] = {k: torch.tensor(v) if k == "step" else torch.from_numpy(np.array(v)).to(device)
                         for k, v in entry.items()}
+            if name in dims:
+                state[i].update(shard_state({k: state[i][k] for k in _MOMENTS},
+                                            dict.fromkeys(_MOMENTS, dims[name]), mesh))
     optimizer.load_state_dict({"state": state,
                                "param_groups": optimizer.state_dict()["param_groups"]})
     optimizer.count = int(saved.get("count", count))
@@ -300,20 +328,27 @@ def _load_adam_state(model: torch.nn.Module, optimizer, saved: dict, count: int)
 
 def save_checkpoint(directory: str | os.PathLike, step: int, *, model: torch.nn.Module,
                     ema: Optional[torch.nn.Module] = None, optimizer=None,
-                    config=None) -> Path:
+                    config=None, mesh: Optional[Mesh] = None) -> Path:
     """Write ``checkpoint_<step>.msgpack`` (and ``config.json`` when a
     config is given) under ``directory``. ``optimizer=None`` leaves the
     optimizer state out, as intermediate saves do. The file is written to
-    a temporary name and moved into place."""
+    a temporary name and moved into place. On a ``mesh`` every rank calls
+    it (the tp shards are gathered) and rank 0 alone writes."""
     directory = Path(directory)
+    path = directory / f"checkpoint_{step}.msgpack"
+    dims = sharded_dims(model)
+    params = gather_state(model.state_dict(), dims, mesh)
+    ema_params = gather_state(ema.state_dict(), dims, mesh) if ema is not None else None
+    opt_state = _adam_state(model, optimizer, mesh) if optimizer is not None else {}
+    if not is_main(mesh):
+        return path
     directory.mkdir(parents=True, exist_ok=True)
     payload = {
         "step": int(step),
-        "params": flax_params_from_torch(model.state_dict()),
-        "ema_params": flax_params_from_torch(ema.state_dict()) if ema is not None else {},
-        "opt_state": _adam_state(model, optimizer) if optimizer is not None else {},
+        "params": flax_params_from_torch(params),
+        "ema_params": flax_params_from_torch(ema_params) if ema is not None else {},
+        "opt_state": opt_state,
     }
-    path = directory / f"checkpoint_{step}.msgpack"
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_bytes(msgpack_serialize(payload))
     os.replace(tmp, path)
@@ -323,14 +358,16 @@ def save_checkpoint(directory: str | os.PathLike, step: int, *, model: torch.nn.
     return path
 
 
-def restore_train_state(directory: str | os.PathLike, state) -> tuple[object, int]:
+def restore_train_state(directory: str | os.PathLike, state,
+                        mesh: Optional[Mesh] = None) -> tuple[object, int]:
     """Restore a ``TrainState`` (model, EMA, optimizer, step) in place from
     the newest checkpoint under ``directory``. The stored step is the loop
     label of the save, whose update is already in the weights, so the run
     continues at label + 1. Returns (state, start step); (state, 0) when
     there is no checkpoint. A checkpoint without EMA restores the EMA as the
     weights; one without optimizer state keeps the fresh optimizer, whose
-    schedule count is 0, as the JAX package keeps a fresh ``opt_state``."""
+    schedule count is 0, as the JAX package keeps a fresh ``opt_state``.
+    On a ``mesh`` each rank keeps its shards of what it reads."""
     from physicsinformeddiffusionmodels_tpu_torch.models.convert import (
         torch_state_dict_from_flax,
     )
@@ -339,18 +376,21 @@ def restore_train_state(directory: str | os.PathLike, state) -> tuple[object, in
     if path is None:
         return state, 0
     raw = msgpack_restore(path.read_bytes())
-    params = torch_state_dict_from_flax(raw["params"])
+    dims = sharded_dims(state.model)
+    params = shard_state(torch_state_dict_from_flax(raw["params"]), dims, mesh)
     state.model.load_state_dict(params)
-    state.ema.load_state_dict(torch_state_dict_from_flax(raw["ema_params"])
-                              if raw.get("ema_params") else params)
+    state.ema.load_state_dict(
+        shard_state(torch_state_dict_from_flax(raw["ema_params"]), dims, mesh)
+        if raw.get("ema_params") else params)
     state.step = int(raw["step"]) + 1
     if raw.get("opt_state"):
         # checkpoints written before the count was saved ran the schedule
         # on the step, which continues at state.step
-        _load_adam_state(state.model, state.optimizer, raw["opt_state"], state.step)
+        _load_adam_state(state.model, state.optimizer, raw["opt_state"], state.step, mesh)
     else:
         state.optimizer.count = 0
-    print(f"Resumed from {path} at step {state.step}")
+    if is_main(mesh):
+        print(f"Resumed from {path} at step {state.step}")
     return state, state.step
 
 

@@ -17,6 +17,14 @@ from one ``torch.Generator`` seeded with (seed, step), as the JAX trainer
 folds the step into its key, so a resumed run repeats an uninterrupted one.
 The draws stay out of the graph: they are made eagerly and copied into the
 graph's input buffers before each replay.
+
+On a mesh (``parallel.mesh``) every rank draws the global batch and keeps
+its rows, so a step at any world size computes the one-rank step's
+numbers up to the order of the gradient sum: after the backward the
+gradients are summed over the data ranks in one flat all-reduce and
+divided by their count, the clip takes the global norm of the tp shards,
+Adam and the EMA keep each rank's shards, and the logged losses are the
+means over the data ranks. There is no CUDA graph of a step on a mesh.
 """
 
 from __future__ import annotations
@@ -26,9 +34,15 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from physicsinformeddiffusionmodels_tpu_torch.diffusion.ema import ema_init, ema_update_after
+from physicsinformeddiffusionmodels_tpu_torch.parallel.mesh import (
+    Mesh,
+    shard_batch,
+    sharded_dims,
+)
 
 
 class ClipAdam:
@@ -47,10 +61,16 @@ class ClipAdam:
     device) and reads its learning rate from a device tensor, ``lr``, that
     ``set_lr`` fills before each step, so that a CUDA graph of the step
     (``GraphedTrainStep``) and the eager step compute the same bits. On the
-    CPU Adam takes the Python float, as before."""
+    CPU Adam takes the Python float, as before.
+
+    On a ``mesh`` the gradients are first summed over its data ranks and
+    divided by their count, and the global norm counts each tp shard
+    (``sharded``: the parameters split over tp) and each replicated
+    parameter once."""
 
     def __init__(self, params, learning_rate: float = 1e-4, grad_clip: float = 1.0,
-                 schedule: str = "constant", total_steps: int = 0, final_frac: float = 0.1):
+                 schedule: str = "constant", total_steps: int = 0, final_frac: float = 0.1,
+                 mesh: Optional[Mesh] = None, sharded=()):
         if schedule == "cosine" and total_steps <= 0:
             raise ValueError("cosine lr schedule needs total_steps > 0")
         if schedule not in ("constant", "cosine"):
@@ -64,6 +84,9 @@ class ClipAdam:
         self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
                                      capturable=cuda)
         self.count = 0
+        self.mesh = mesh
+        self.sharded = {id(p) for p in sharded}
+        self.has_grad: Optional[list] = None  # on a mesh: which parameters get a gradient
 
     def lr_at(self, count: int) -> float:
         if self.schedule == "constant":
@@ -86,11 +109,57 @@ class ClipAdam:
                 group["lr"] = value
 
     @torch.no_grad()
+    def reduce_grads(self) -> None:
+        """The gradients summed over the mesh's data ranks and divided by
+        their count, in one flat all-reduce. A parameter without a gradient
+        adds zeros (every rank must reduce the same list); it gets one where
+        any rank has one. Which parameters get one is fixed by the model and
+        the loss: the ranks agree on it at the first step (one host-device
+        sync) and keep it."""
+        mesh = self.mesh
+        if mesh is None or mesh.n_data == 1:
+            return
+        ref = self.params[0]
+        if self.has_grad is None:
+            flags = ref.new_tensor([float(p.grad is not None) for p in self.params])
+            dist.all_reduce(flags, group=mesh.data_group)
+            self.has_grad = (flags > 0).tolist()
+        elif any(p.grad is not None and not h for p, h in zip(self.params, self.has_grad)):
+            raise RuntimeError("a parameter got a gradient that no rank gave it at the first "
+                               "step: the set of trained parameters changed")
+        flat = torch.cat([p.grad.reshape(-1) if p.grad is not None
+                          else ref.new_zeros(p.numel()) for p in self.params])
+        dist.all_reduce(flat, group=mesh.data_group)
+        flat /= mesh.n_data
+        offset = 0
+        for p, h in zip(self.params, self.has_grad):
+            if h:
+                p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+
+    def _global_norm(self, grads: list) -> torch.Tensor:
+        """The L2 norm of every gradient; under tp, of the whole parameters'."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+        def sum_sq(gs):
+            return (torch.stack(torch._foreach_norm(gs)).square().sum() if gs
+                    else grads[0].new_zeros(()))
+
+        split = [p.grad for p in self.params if p.grad is not None and id(p) in self.sharded]
+        rest = [p.grad for p in self.params if p.grad is not None and id(p) not in self.sharded]
+        split_sq = sum_sq(split)
+        dist.all_reduce(split_sq, group=self.mesh.tp_group)
+        return torch.sqrt(sum_sq(rest) + split_sq)
+
+    @torch.no_grad()
     def clip_and_update(self) -> None:
         """Clip the gradients in place, then one Adam step at the learning
-        rate ``set_lr`` gave: device work only, which a CUDA graph captures."""
+        rate ``set_lr`` gave: device work only, which a CUDA graph captures
+        (on a mesh the gradients are reduced first, which none does)."""
+        self.reduce_grads()
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self._global_norm(grads)
         scale = torch.where(norm > self.grad_clip, self.grad_clip / norm, torch.ones_like(norm))
         torch._foreach_mul_(grads, scale)
         self.adam.step()
@@ -114,10 +183,12 @@ class ClipAdam:
 
 def make_optimizer(model: nn.Module, learning_rate: float = 1e-4, grad_clip: float = 1.0,
                    schedule: str = "constant", total_steps: int = 0,
-                   final_frac: float = 0.1) -> ClipAdam:
-    """Global-norm clip then Adam over ``model``'s parameters."""
+                   final_frac: float = 0.1, mesh: Optional[Mesh] = None) -> ClipAdam:
+    """Global-norm clip then Adam over ``model``'s parameters (on a
+    ``mesh``, after ``shard_params``: its shards)."""
+    dims = sharded_dims(model)
     return ClipAdam(model.parameters(), learning_rate, grad_clip, schedule, total_steps,
-                    final_frac)
+                    final_frac, mesh, [p for k, p in model.named_parameters() if k in dims])
 
 
 @dataclasses.dataclass
@@ -144,18 +215,27 @@ def _detached(aux):
     return aux
 
 
+def _data_mean(aux, mesh: Optional[Mesh]):
+    """A named tuple of scalars averaged over the mesh's data ranks."""
+    if mesh is None or mesh.n_data == 1 or not hasattr(aux, "_fields"):
+        return aux
+    values = torch.stack([a.float().reshape(()) for a in aux])
+    dist.all_reduce(values, group=mesh.data_group)
+    return type(aux)(*(values / mesh.n_data).unbind())
+
+
 def train_step(state: TrainState, loss_fn: Callable, *args, ema_mu: float = 0.99,
                ema_start: int = 1000):
     """One optimizer step: ``loss_fn(model, *args) -> (loss, aux)``, backward,
     clip, Adam, EMA (gated on the step before its increment). Returns aux,
-    detached."""
+    detached; on the optimizer's mesh, each scalar the data ranks' mean."""
     state.optimizer.zero_grad()
     loss, aux = loss_fn(state.model, *args)
     loss.backward()
     state.optimizer.step()
     ema_update_after(state.ema, state.model, state.step, mu=ema_mu, ema_start=ema_start)
     state.step += 1
-    return _detached(aux)
+    return _data_mean(_detached(aux), state.optimizer.mesh)
 
 
 def _device_step(state: TrainState, loss_fn: Callable, args, ema_after: bool, ema_mu: float):
@@ -218,6 +298,9 @@ class GraphedTrainStep:
                  ema_start: int = 1000):
         if not next(state.model.parameters()).is_cuda:
             raise ValueError("GraphedTrainStep needs the model on a CUDA device")
+        if state.optimizer.mesh is not None:
+            raise ValueError("GraphedTrainStep captures no collective: step per dispatch "
+                             "on a mesh")
         self.state, self.loss_fn = state, loss_fn
         self.ema_mu, self.ema_start = ema_mu, ema_start
         self.graphs: dict[bool, tuple] = {}
@@ -294,10 +377,12 @@ def resident_train_step(state: TrainState, loss_fn: Callable, data: torch.Tensor
     data's device; reseeded here). ``loss_fn(model, batch, t, noise[,
     null_mask])``, the mask drawn when ``null_cond_prob`` is given, the noise
     with ``noise_channels`` channels when given. With ``graphed`` (over the
-    same state and loss), the step is its replay. Returns aux."""
+    same state and loss), the step is its replay. On the optimizer's mesh
+    every rank draws the global batch and keeps its rows. Returns aux."""
     args = resident_batch(data, batch_size, n_steps,
                           step_generator(generator, seed, state.step), null_cond_prob,
                           noise_channels)
+    args = tuple(shard_batch(a, state.optimizer.mesh) for a in args)
     if graphed is not None:
         return graphed(*args)
     return train_step(state, loss_fn, *args, ema_mu=ema_mu, ema_start=ema_start)

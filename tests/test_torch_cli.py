@@ -37,7 +37,9 @@ from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
 sample_eval.parse_args(["--model-dir", "m", "--no-samples", "2", "--device", "cpu",
                         "--guidance-scale", "3"])
 train.parse_args(["--iterations", "2", "--device", "cpu", "--x0-estimation", "sample",
-                  "--residual-grad-guidance", "--chunk-steps", "20"])
+                  "--residual-grad-guidance", "--chunk-steps", "20", "--mesh-dp", "2",
+                  "--mesh-tp", "2", "--mesh-slices", "2", "--tp-shard-activations",
+                  "--seq-parallel-attn"])
 from physicsinformeddiffusionmodels_tpu_torch import train_mechanics
 train_mechanics.parse_args(["--iterations", "2", "--device", "cpu", "--chunk-steps", "20"])
 from physicsinformeddiffusionmodels_tpu_torch import train_toy
@@ -60,7 +62,8 @@ def test_port_imports_nothing_of_jax():
                  "profile_training", "profile_k4", "physics.mechanics", "physics.fem_grid",
                  "ops.reshape", "ops.connected_components", "data.mechanics_generator",
                  "generate_mechanics_sets", "train_mechanics", "profile_sampling",
-                 "physics.toy", "models.toy", "train_toy", "data.mechanics_generator_gpu"):
+                 "physics.toy", "models.toy", "train_toy", "data.mechanics_generator_gpu",
+                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.seq_attention"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 40
     assert report["banned"] == []

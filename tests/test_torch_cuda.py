@@ -568,7 +568,25 @@ def test_batched_pcg_on_the_card_matches_the_cpu_and_the_host_solve(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,groups,offset", [(33, 20, 4, 0), (100, 6, 2, 0), (77, 32, 8, 1)])
 def test_group_norm_kernels_without_16_byte_vectors(cuda, n, c, groups, offset):
-    x, gamma, beta, scale, shift = [_t(a, cuda) for a in _gn_inputs(3, n, c, True)]
+    _check_gn_grouped(cuda, 3, n, c, groups, offset)
+
+
+# K2 under tensor parallelism: a column-parallel Block normalises its rank's
+# C / tp channels in 8 / tp groups; the Darcy and mechanics UNets' wide
+# stages at tp = 2 (4 groups) and tp = 4 (2 groups)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,groups", [(1024, 32, 4), (256, 64, 4), (4096, 64, 4),
+                                        (1024, 128, 4), (256, 256, 4), (64, 512, 4),
+                                        (4096, 32, 2), (64, 256, 2)])
+def test_group_norm_kernels_at_tensor_parallel_groups(cuda, n, c, groups):
+    _check_gn_grouped(cuda, 6, n, c, groups, 0)
+
+
+def _check_gn_grouped(cuda, b, n, c, groups, offset):
+    """K2's forward and backward, fp32 and bf16, with ``groups`` groups,
+    against autograd through the plain version; x ``offset`` elements past
+    a 16-byte boundary."""
+    x, gamma, beta, scale, shift = [_t(a, cuda) for a in _gn_inputs(b, n, c, True)]
     for dtype in (torch.float32, torch.bfloat16):
         buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
         buf[offset:].copy_(x.flatten())
@@ -1096,6 +1114,19 @@ def test_graphed_steps_equal_eager_steps_bit_for_bit(cuda, guided, dtype):
     for sa, sb in zip(eager.optimizer.adam.state.values(), replay.optimizer.adam.state.values()):
         assert all(torch.equal(sa[k], sb[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
     assert (eager.step, eager.optimizer.count) == (replay.step, replay.optimizer.count) == (12, 12)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_step_as_one_process(cuda, tmp_path):
+    """Two data-parallel ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one device), a B=8 step of a small UNet through K1 and K2 on each, against
+    the one-process step on the same card (``torch_ranks.cuda_dp_step``)."""
+    from torch_ranks import cuda_dp_step, spawn
+
+    spawn(cuda_dp_step, 2, tmp_path)
+    out = dict(np.load(tmp_path / "cuda_dp.npz"))
+    assert out["loss_rel"] <= 1e-5 and out["worst_grad"] <= 1e-3
+    assert out["k1_launches"] == 2 * 4 and out["k2_launches"] == 2 * 22  # fwd + bwd a call
 
 
 @pytest.mark.cuda

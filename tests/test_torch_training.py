@@ -230,12 +230,14 @@ def test_metrics_log_keeps_earlier_rows_across_a_resume(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh_tp=2), "item 11"),
+    (dict(mesh_tp=2), "torchrun"),
 ])
 def test_driver_refuses_unported_options(kw, item):
+    """A mesh of more than one rank with no process group raises, naming
+    the launcher, before anything is built or run."""
     cfg = RunConfig(**{"compute_dtype": "float32", **kw})
-    with pytest.raises(NotImplementedError, match=item):
-        train.check_supported(cfg)
+    with pytest.raises(RuntimeError, match=item):
+        train.join_run(cfg, "cpu")
 
 
 def test_cli_compute_dtype_defaults_to_the_config():
