@@ -66,15 +66,29 @@ the script exits non-zero:
      800 and K2 3800 (the corrections call no model), samples that differ
      from phase 6's.
 The phases run in this order: 1-8, then every other kernel timing (10,
-12, 14, 15ab) on a quiet card; then 20 and 21, which need none of 9a's
-data, while the background jobs make 9a's and 19a's sets; then 9, 13,
+12, 14, 15ab); then 20 and 21, which need none of 9a's data; then 9, 13,
 15c-f, 16-19, 22 and 11, sharing one temporary directory with phase 9's
-data; the card vs CPU train steps of 9b, 15e, 16b and 17c, which time
-nothing, wait until after 22. Phase 23's processes start after phase 1,
-join their group during the build and run on the card only after 19d's
-timing, beside 19e, 22, those steps and
-11 (whose samples/s, and 19e's, they share); its timed turns run last,
-on a quiet card.
+data. Work that times nothing is kept off the critical path:
+  * the background: from phase 1 on, the data jobs make 9a's and 19a's
+    sets, and a CPU-reference worker (this script with ``--cpu-refs``, the
+    card hidden from it) computes the CPU halves of the card vs CPU checks
+    9b, 13a, 15e, 16b, 17c, 19c and 22 (their inputs and the CPU's loss,
+    gradients and outputs; CPU_REFS) as soon as their data is made. Each
+    is a niced process group that ``Background.quiet`` stops (SIGSTOP)
+    while any phase times, on the host clock or a graph replay, and lets go
+    on after; the card halves read the worker's files;
+  * the window: the checks that time nothing run after 19d's timing, the
+    last of the main paths', in three kinds of process side by side: this
+    one (19e, 22, 11, then 9b, 9e, 13a, 15c, 15e, 16b, 17a, 17c, 19b, 19a's
+    checks, 19c), the card lane (this script with ``--lane``: 18a, 9f, 13d,
+    20a, 21a-b, 5; LANE_CHECKS) and phase 23's two ranks with its torchrun
+    CLI. The lane and the ranks start after the build and import meanwhile
+    (stopped, as the background, while a phase times); 23's timed turns
+    run last, on a quiet card.
+The line before the kernel line gives the run's serial CPU work in
+seconds: each CPU reference (as the worker timed it), the host-clock timed
+work by phase, the rank processes' start-up, and how long each card half
+waited for its CPU reference.
  12. the bf16 backward kernels of K1, K2 and K3 against torch autograd
      through their plain versions on the same bf16 input, at every path
      shape (and the ragged ones) at B=4 and B=64: dx within BF16_DX_TOL of
@@ -100,8 +114,12 @@ on a quiet card.
  14. K5, the lane-packed bf16 GroupNorm-FiLM-SiLU, against its plain
      version and against K2's forward on the same bf16 input (within
      K5_TOL of the largest output) at [64, 4096, 32], [64, 1024, 64] and
-     [64, 256, 128]; then K5's path, ``profile_gn`` at the level-0 shape,
-     with K5's launch count zeroed just before and read just after.
+     [64, 256, 128], each with its launch plan (one cluster a batch row:
+     blocks a row, shared memory a block, clusters at once); then K5's
+     path, ``profile_gn`` at the level-0 shape, with K5's launch count
+     zeroed just before and read just after, and a CUDA graph of one call
+     holding one node, a kernel; K5 and K2's bf16 forward timed at each
+     shape.
  15. K4 and the channel-major UNet (``cm_conv_stages``): (a) K4's forward
      against its plain version at every (P, Ci, Co) of the cm UNet's calls
      and a ragged P=24, with and without FiLM, fp32 and bf16, B=4 and B=64
@@ -179,11 +197,16 @@ on a quiet card.
      B=OPTIONS_BATCH, seeded weights, 9a's fields; the forward (with an
      x_self_cond) and one fp32 step on the periodic Darcy residual, card vs
      CPU (phase 5's and 9b's rules); K1 and K2 launch counts zeroed before
-     and read after each: 8 and 38 a UNet call, forward and backward.
+     and read after each: 8 and 38 a UNet call, forward and backward. Then
+     the frame axis: a [FRAMES_BATCH, FRAMES, 64, 64, 2] forward of
+     UNet(dim=32, multi_frame=True), seeded, card vs CPU (phase 5's
+     tolerance), the frames folded into the batch of each K1 and K2 call (8
+     and 38 launches).
  23. the parallel layer (``parallel/``) on PAR_WORLD ranks sharing the card
      over gloo (NCCL refuses two ranks on one device): two processes of
-     this script, started after phase 1, whose checks run beside 19e,
-     22, the deferred card vs CPU steps and 11: (a) data parallelism, UNet(dim=32) from the 300k EMA weights, one
+     this script, started after the build, whose checks run in the window
+     after 19d's timing: (a) data parallelism, UNet(dim=32) from the 300k
+     EMA weights, one
      step at B=64 (32 a rank) against the one-process B=64 step on the card,
      fp32 (9b's rule; the updated weights by PAR_MOVED_TOL's) and bf16 +
      fp32 head (13a's rule), and fp32 again on a (slice, dp, tp) = (2, 1,
@@ -223,6 +246,7 @@ Exits 2 without a result where torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import csv
 import functools
 import json
@@ -420,6 +444,10 @@ SIMP_FULL = dict(batch=64, P=64, n_iter=30)
 # forward within phase 5's 5e-4, one fp32 step on a periodic Darcy residual
 # by 9b's rules); K1 and K2 launched once a UNet call, forward and backward
 OPTIONS_BATCH = 16
+# phase 22's frame axis (JAX's test_video_frames_path: F=3): [B, F, 64, 64,
+# 2] through UNet(dim=32, multi_frame=True), the frames folded into K1's
+# and K2's batch, so still 8 and 38 launches a forward
+FRAMES_BATCH, FRAMES = 2, 3
 OPTIONS_FWD_LAUNCHES = ((8, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
 # phase 23: the parallel layer (parallel/) on PAR_WORLD ranks that share
 # the one card over gloo (NCCL refuses two ranks on one device), each rank
@@ -430,6 +458,8 @@ OPTIONS_FWD_LAUNCHES = ((8, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
 # PAR_COLLECTIVE_S, a rank for the main process or the main process for
 # the ranks PAR_JOIN_S.
 PAR_WORLD, PAR_COLLECTIVE_S, PAR_JOIN_S = 2, 240, 600
+# the CPU-reference worker waits at most this long for a data part
+DATA_WAIT_S = 900
 PAR_DARCY_BATCH, PAR_SP_BATCH, PAR_MECH_BATCH = 64, 8, 6
 # a forward and backward of the sequence-parallel UNet: no K1 (its attention
 # is plain PyTorch on each rank's tokens, as in JAX), K2 38 and 38
@@ -446,6 +476,83 @@ PAR_MOVED_TOL, PAR_MOVED_SHARE = 0.05, 1e-3
 PAR_STATE_SHARE_MAX = 0.55
 # timed turns (one process, two ranks, two ranks, one process), steps a turn
 PAR_TIMED = {"darcy": 3, "mechanics": 3}
+
+
+# the serial CPU work of a run, seconds by kind and phase: the CPU references
+# of the card-vs-CPU checks, the host-clock timed work (eager steps,
+# sampling, CLIs) and the rank processes' start-up; printed as one line
+SERIAL: dict = {"cpu_references": {}, "timed_host": {}, "rank_startup": {}}
+
+
+@contextlib.contextmanager
+def serial(kind: str, name: str):
+    """Adds the seconds of the block to SERIAL[kind][name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SERIAL[kind][name] = SERIAL[kind].get(name, 0.0) + time.perf_counter() - t0
+
+
+class Background:
+    """The script's background work that times nothing (the data jobs, the
+    CPU-reference worker), each process in a session of its own: ``quiet()``
+    stops every such process group (SIGSTOP) while the block inside it
+    times, and lets them go on after (SIGCONT), so that no timed work
+    shares the host's cores with them."""
+
+    def __init__(self):
+        import threading
+
+        self.groups, self.depth, self.lock = set(), 0, threading.Lock()
+
+    def add(self, pid: int) -> None:
+        import signal
+
+        with self.lock:
+            self.groups.add(pid)
+            if self.depth:
+                self._signal(pid, signal.SIGSTOP)
+
+    def discard(self, pid: int) -> None:
+        with self.lock:
+            self.groups.discard(pid)
+
+    @staticmethod
+    def _signal(group: int, sig) -> None:
+        try:
+            os.killpg(group, sig)
+        except ProcessLookupError:  # it has ended
+            pass
+
+    @contextlib.contextmanager
+    def quiet(self):
+        import signal
+
+        with self.lock:
+            self.depth += 1
+            if self.depth == 1:
+                for g in self.groups:
+                    self._signal(g, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            with self.lock:
+                self.depth -= 1
+                if self.depth == 0:
+                    for g in self.groups:
+                        self._signal(g, signal.SIGCONT)
+
+
+BACKGROUND = Background()
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Host-clock timed work of phase ``name``: the background work waits
+    meanwhile, and SERIAL records its seconds."""
+    with BACKGROUND.quiet(), serial("timed_host", name):
+        yield
 
 
 def phase(name: str):
@@ -784,47 +891,63 @@ def launches_of(steps: int, per_step: tuple) -> tuple:
     return tuple(tuple(steps * v for v in row) for row in per_step)
 
 
-def step_card_vs_cpu(what: str, dev, ds, cm: bool = False, run: Path = RUN,
-                     batch_size: int = 8) -> None:
-    """One fp32 train step at ``batch_size`` from the EMA weights of ``run``
-    (300k by default; with ``cm_conv_stages`` when ``cm``), with the loss of
-    the run's config (DDIM x0 sample-estimation, guidance), on the card
-    (kernels) and on the CPU (plain versions), on the same batch, t, noise
-    and null mask (a mixed one, for a guided run) from the training set
-    ``ds``: the loss within STEP_LOSS_RTOL relative, each parameter's
-    gradient within STEP_GRAD_TOL of its largest entry."""
+def ref_fp32_step(tmp: Path, run: Path = RUN, cm: bool = False, batch_size: int = 8) -> dict:
+    """The CPU half of ``step_card_vs_cpu`` (computed by the CPU-reference
+    worker): one fp32 train step at ``batch_size`` from the EMA weights of
+    ``run`` (with ``cm_conv_stages`` when ``cm``), with the loss of the
+    run's config, on a batch, t, noise and null mask (a mixed one, for a
+    guided run) drawn from 9a's training set in ``tmp``. Returns those
+    inputs, the loss and each parameter's gradient (None where unused)."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    cfg, model, _ = sample_eval.load_run(run, compute_dtype="float32", device="cpu")
+    model.cm_conv_stages = cm
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, "cpu"), cfg)
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, N_TRAIN, batch_size)
+    t = torch.from_numpy(rng.integers(0, cfg.diff_steps, batch_size))
+    batch = torch.from_numpy(load_darcy_dataset(tmp / "train").stacked()[idx])
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    extra = ()
+    if cfg.residual_grad_guidance:  # every fourth sample masked
+        extra = (torch.arange(batch_size) % 4 == 0,)
+    loss, _ = loss_fn(model, batch, t, noise, *extra)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    return {"inputs": (batch, t, noise, extra), "loss": loss.detach(), "grads": list(grads)}
+
+
+def step_card_vs_cpu(what: str, dev, refs: "CpuRefs", cm: bool = False, run: Path = RUN) -> None:
+    """One fp32 train step from the EMA weights of ``run`` (300k by
+    default; with ``cm_conv_stages`` when ``cm``) on the card (kernels),
+    on the inputs of ``ref_fp32_step``, held to its CPU step (plain
+    versions): the loss within STEP_LOSS_RTOL relative, each parameter's
+    gradient within STEP_GRAD_TOL of its largest entry. The CPU half is
+    ``refs``' entry of the phase (the first word of ``what``)."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 
     ph = phase(what)
+    ref = refs.get(what.split()[0])
     cfg, model, _ = sample_eval.load_run(run, compute_dtype="float32", device=dev)
-    _, model_cpu, _ = sample_eval.load_run(run, compute_dtype="float32", device="cpu")
-    model.cm_conv_stages = model_cpu.cm_conv_stages = cm
-    sched = create_schedule(cfg.diff_steps)
-    loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
-    loss_cpu_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, "cpu"), cfg)
-    rng = np.random.default_rng(0)
-    idx = rng.integers(0, N_TRAIN, batch_size)
-    t = torch.from_numpy(rng.integers(0, cfg.diff_steps, batch_size))
-    batch = torch.from_numpy(ds.stacked()[idx])
-    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
-    extra = ()
-    if cfg.residual_grad_guidance:  # every fourth sample masked
-        extra = (torch.arange(batch_size) % 4 == 0,)
-    params, params_cpu = list(model.parameters()), list(model_cpu.parameters())
+    model.cm_conv_stages = cm
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    batch, t, noise, extra = ref["inputs"]
     t_card = time.perf_counter()
     loss, _ = loss_fn(model, batch.to(dev), t.to(dev), noise.to(dev),
                       *(e.to(dev) for e in extra))
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
     torch.cuda.synchronize()
-    t_cpu = time.perf_counter()
-    loss_cpu, _ = loss_cpu_fn(model_cpu, batch, t, noise, *extra)
-    grads_cpu = torch.autograd.grad(loss_cpu, params_cpu, allow_unused=True)
-    t_end = time.perf_counter()
-    done(ph, batch=batch_size, **hold_fp32_step(model, loss, grads, loss_cpu, grads_cpu),
-         card_s=f"{t_cpu - t_card:.2f}", cpu_s=f"{t_end - t_cpu:.2f}")
+    done(ph, batch=batch.shape[0], **hold_fp32_step(model, loss, grads, ref["loss"],
+                                                    ref["grads"]),
+         card_s=f"{time.perf_counter() - t_card:.2f}", cpu_s=f"{ref['seconds']:.2f}")
 
 
 def hold_fp32_step(model, loss, grads, loss_cpu, grads_cpu, sides=("card", "CPU")) -> dict:
@@ -877,14 +1000,15 @@ def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        aux = resident_train_step(state, loss_fn, data, batch, cfg.diff_steps, cfg.seed,
-                                  step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start,
-                                  null_cond_prob=train.null_cond_prob(cfg))
-        losses.append(aux.loss.detach())
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with timed(what.split()[0]):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            aux = resident_train_step(state, loss_fn, data, batch, cfg.diff_steps, cfg.seed,
+                                      step_gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start,
+                                      null_cond_prob=train.null_cond_prob(cfg))
+            losses.append(aux.loss.detach())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     got, want = launch_counts(), launches_of(steps, per_step)
     if got != want:
         raise AssertionError(f"{what}: launches K1, K2, K4 (fwd, fwd bf16, bwd, bwd bf16) "
@@ -908,10 +1032,12 @@ def train_main_path(what: str, model, cfg, loss_fn, data, per_step: tuple, smi: 
 
 class DataJobs:
     """The sets of phases 9a and 19a, made by the port's generator CLIs in
-    one background thread, one niced process at a time, while the card runs
-    phases 3-8: CPU work that needs no card. ``wait(name)`` blocks until a
-    part is made (raising with the log's end if a generator failed) and
-    returns its seconds; ``stop()`` kills a generator still running."""
+    one background thread, one niced process at a time (each in a session
+    of its own, which BACKGROUND stops while a phase times), from the build
+    on: CPU work that needs no card. A set made writes ``<set>.done`` (for
+    the CPU-reference worker); ``wait(name)`` blocks until a part is
+    made (raising with the log's end if a generator failed) and returns its
+    seconds; ``stop()`` kills a generator still running."""
 
     def __init__(self, tmp: Path):
         import threading
@@ -923,15 +1049,18 @@ class DataJobs:
             return [sys.executable, "-m", f"{port}.data.darcy_generator", "--n-samples", str(n),
                     "--out", str(tmp / out), "--seed", str(seed), "--workers", workers]
 
-        self.jobs = {"darcy": [darcy(N_TRAIN, "train", 1), darcy(N_VALID, "valid", 10_000)],
-                     "mechanics": [[sys.executable, "-m", f"{port}.generate_mechanics_sets",
-                                    "--root", str(tmp / "mechanics"),
-                                    *(f"--{k.replace('_', '-')}={v}" for k, v in
-                                      MECH_SETS.items()), "--device", "host",
-                                    "--workers", workers]]}
+        # part -> (set name, its command) in order; a set made writes
+        # <set>.done, which the CPU-reference worker waits for
+        self.jobs = {"darcy": [("train", darcy(N_TRAIN, "train", 1)),
+                               ("valid", darcy(N_VALID, "valid", 10_000))],
+                     "mechanics": [("mechanics", [
+                         sys.executable, "-m", f"{port}.generate_mechanics_sets",
+                         "--root", str(tmp / "mechanics"),
+                         *(f"--{k.replace('_', '-')}={v}" for k, v in MECH_SETS.items()),
+                         "--device", "host", "--workers", workers])]}
         # niced, so that the phases that drive the card keep their CPU
         self.nice = ["nice", "-n", "10"] if shutil.which("nice") else []
-        self.log = tmp / "data_jobs.log"
+        self.log, self.tmp = tmp / "data_jobs.log", tmp
         self.done = {name: threading.Event() for name in self.jobs}
         self.seconds, self.error, self.proc, self.stopped = {}, None, None, False
         self.thread = threading.Thread(target=self._run, daemon=True)
@@ -941,13 +1070,19 @@ class DataJobs:
         with open(self.log, "w") as log:
             for name, cmds in self.jobs.items():
                 t0 = time.perf_counter()
-                for cmd in cmds:
+                for out, cmd in cmds:
                     if self.stopped or self.error:
                         break
+                    # a session of its own: BACKGROUND stops and resumes it whole
                     self.proc = subprocess.Popen(self.nice + cmd, cwd=ROOT, stdout=log,
-                                                 stderr=subprocess.STDOUT)
+                                                 stderr=subprocess.STDOUT,
+                                                 start_new_session=True)
+                    BACKGROUND.add(self.proc.pid)
                     if self.proc.wait() != 0:
                         self.error = f"{' '.join(cmd)} exited {self.proc.returncode}"
+                    BACKGROUND.discard(self.proc.pid)
+                    if not self.error:
+                        (self.tmp / f"{out}.done").touch()
                 self.seconds[name] = time.perf_counter() - t0
                 self.done[name].set()
 
@@ -959,14 +1094,16 @@ class DataJobs:
         return self.seconds[name]
 
     def stop(self) -> None:
+        import signal
+
         self.stopped = True
         if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
+            os.killpg(self.proc.pid, signal.SIGKILL)
             self.proc.wait()
         self.thread.join(timeout=60)
 
 
-def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list
+def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list, refs: "CpuRefs"
                 ) -> tuple[tuple[int, int, int, int], float]:
     """Phase 9; its data stays in ``tmp`` for phases 13 and 15; 9b's card vs
     CPU step goes to ``later``. Returns the launch counts of the main-path
@@ -995,7 +1132,8 @@ def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list
     sched = create_schedule(cfg.diff_steps)
     loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
 
-    later.append(functools.partial(step_card_vs_cpu, "9b one train step, card vs CPU", dev, ds))
+    later.append(functools.partial(step_card_vs_cpu, "9b one train step, card vs CPU", dev,
+                                   refs))
 
     ph = phase("9c loss of the 300k EMA weights")
     data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
@@ -1019,36 +1157,48 @@ def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list
                                               data, FP32_STEP_LAUNCHES, smi)
     counts = (got[0][0], got[0][2], got[1][0], got[1][2])
 
-    ph = phase("9e checkpoint save and restore")
-    save_checkpoint(tmp / "ckpt", TRAIN_STEPS - 1, model=state.model, ema=state.ema,
-                    optimizer=state.optimizer, config=cfg)
-    fresh = train.build_model(cfg).to(dev)
-    restored, start = restore_train_state(tmp / "ckpt",
-                                          create_train_state(fresh, make_optimizer(fresh)))
-    saved_sd, restored_sd = state.ema.state_dict(), restored.ema.state_dict()
-    same_weights = all(torch.equal(saved_sd[k], restored_sd[k]) for k in saved_sd)
-    x = data[:8]
-    tt = torch.arange(8, device=dev) * 12
-    # cuDNN's default algorithms may sum in another order from call to call
-    # (two forwards of one model differ by up to ~3e-5, printed below); with
-    # its deterministic algorithms, and K1/K2's fixed summation order, a
-    # forward of the same weights repeats bit for bit, so the restored EMA's
-    # forward must equal the saved one's exactly
-    with torch.no_grad():
-        default_repeat = (state.ema(x, tt) - state.ema(x, tt)).abs().max().item()
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                        allow_tf32=False):
-            y = state.ema(x, tt)
-            repeat = max((state.ema(x, tt) - y).abs().max().item() for _ in range(5))
-            err = (restored.ema(x, tt) - y).abs().max().item()
-    if start != TRAIN_STEPS or not same_weights or repeat != 0 or err != 0:
-        raise AssertionError(f"restore: start {start}, EMA weights equal {same_weights}, "
-                             f"EMA forward max |diff| {err:.3e} (same weights, 5 repeats: "
-                             f"{repeat:.3e}); both must be 0 with deterministic cuDNN")
-    del state, restored, fresh, model
-    done(ph, start=start, ema_weights_bit_equal=same_weights,
-         ema_forward_max_abs_diff=f"{err:.3e}", same_weights_5_repeats_max_abs_diff=f"{repeat:.3e}",
-         default_cudnn_same_weights_twice_max_abs_diff=f"{default_repeat:.3e}")
+    # 9e times nothing: it runs beside phase 23's ranks
+    def checkpoint_round_trip():
+        ph = phase("9e checkpoint save and restore")
+        save_checkpoint(tmp / "ckpt", TRAIN_STEPS - 1, model=state.model, ema=state.ema,
+                        optimizer=state.optimizer, config=cfg)
+        fresh = train.build_model(cfg).to(dev)
+        restored, start = restore_train_state(tmp / "ckpt",
+                                              create_train_state(fresh, make_optimizer(fresh)))
+        saved_sd, restored_sd = state.ema.state_dict(), restored.ema.state_dict()
+        same_weights = all(torch.equal(saved_sd[k], restored_sd[k]) for k in saved_sd)
+        x = data[:8]
+        tt = torch.arange(8, device=dev) * 12
+        # cuDNN's default algorithms may sum in another order from call to call
+        # (two forwards of one model differ by up to ~3e-5, printed below); with
+        # its deterministic algorithms, and K1/K2's fixed summation order, a
+        # forward of the same weights repeats bit for bit, so the restored EMA's
+        # forward must equal the saved one's exactly
+        with torch.no_grad():
+            default_repeat = (state.ema(x, tt) - state.ema(x, tt)).abs().max().item()
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                y = state.ema(x, tt)
+                repeat = max((state.ema(x, tt) - y).abs().max().item() for _ in range(5))
+                err = (restored.ema(x, tt) - y).abs().max().item()
+        if start != TRAIN_STEPS or not same_weights or repeat != 0 or err != 0:
+            raise AssertionError(f"restore: start {start}, EMA weights equal {same_weights}, "
+                                 f"EMA forward max |diff| {err:.3e} (same weights, 5 repeats: "
+                                 f"{repeat:.3e}); both must be 0 with deterministic cuDNN")
+        del restored, fresh
+        done(ph, start=start, ema_weights_bit_equal=same_weights,
+             ema_forward_max_abs_diff=f"{err:.3e}",
+             same_weights_5_repeats_max_abs_diff=f"{repeat:.3e}",
+             default_cudnn_same_weights_twice_max_abs_diff=f"{default_repeat:.3e}")
+
+    later.append(checkpoint_round_trip)
+    return counts, steps_per_s
+
+
+def training_cli_fp32(tmp: Path) -> None:
+    """Phase 9f on 9a's sets in ``tmp`` (the card lane runs it): the
+    training CLI for 3 steps, and ``sample_eval`` of its checkpoint."""
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
 
     ph = phase("9f training CLI and sample_eval of its checkpoint")
     out = tmp / "runs"
@@ -1064,7 +1214,32 @@ def train_phase(tmp: Path, dev, smi: str, jobs: DataJobs, later: list
     if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
         raise AssertionError(f"sample_eval of the CLI's checkpoint: {summary}")
     done(ph, residual_median_after_4_steps=f"{summary['residual_median']:.3e}")
-    return counts, steps_per_s
+
+
+def training_cli_bf16(tmp: Path) -> None:
+    """Phase 13d on 9a's sets in ``tmp`` (the card lane runs it): the
+    training CLI with ``--compute-dtype bfloat16 --fp32-head`` for 3 steps,
+    and ``sample_eval`` of its checkpoint in bf16, 64 samples."""
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+
+    ph = phase("13d bf16 training CLI and bf16 sample_eval of its checkpoint")
+    out = tmp / "runs_bf16"
+    train.main(["--iterations", "3", "--batch-size", "8", "--data-dir", str(tmp / "train"),
+                "--valid-data-dir", str(tmp / "valid"), "--output-dir", str(out),
+                "--sample-freq", "1000", "--test-eval-freq", "2", "--log-freq", "1",
+                "--no-samples", "4", "--name", "smoke_bf16", "--compute-dtype", "bfloat16",
+                "--fp32-head"])
+    run = out / "smoke_bf16"
+    saved = json.loads((run / "config.json").read_text())
+    if (saved["compute_dtype"], saved["fp32_head"]) != ("bfloat16", True) or not (
+            run / "model" / "checkpoint_3.msgpack").exists():
+        raise AssertionError(f"bf16 training CLI outputs under {run}: config {saved}")
+    summary = sample_eval.evaluate(run, SAMPLES, "bfloat16", "cuda", seed=0,
+                                   out=tmp / "eval_bf16")
+    if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
+        raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
+    done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
+         sampling_seconds=f"{summary['seconds']:.2f}")
 
 
 def step_grads(loss_fn, model, batch, t, noise):
@@ -1075,40 +1250,60 @@ def step_grads(loss_fn, model, batch, t, noise):
     return loss.item(), torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
 
 
-def bf16_step_phase(ds, dev) -> None:
-    """Phase 13a on the training set ``ds``: one bf16 + fp32-head train step
-    at B=8 from the 300k EMA weights, on the card and on the CPU."""
+def ref_13a(tmp: Path) -> dict:
+    """The CPU half of phase 13a (computed by the CPU-reference worker): a
+    batch, t and noise at B=8 drawn from 9a's training set in ``tmp``, and
+    one bf16 + fp32-head and one fp32 train step from the 300k EMA weights
+    on them on the CPU: the bf16 loss and gradients, the fp32 loss."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    (cfg, model, _), (_, model32, _) = (
+        sample_eval.load_run(RUN, compute_dtype=dtype, device="cpu")
+        for dtype in ("bfloat16", "float32"))
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, "cpu"), cfg)
+    ds = load_darcy_dataset(tmp / "train")
+    rng = np.random.default_rng(13)
+    idx, t = rng.integers(0, len(ds), 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
+    batch = torch.from_numpy(ds.stacked()[idx])
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    loss, grads = step_grads(loss_fn, model.train(), batch, t, noise)
+    loss32 = step_grads(loss_fn, model32.train(), batch, t, noise)[0]
+    return {"inputs": (batch, t, noise), "loss": loss, "grads": list(grads), "loss32": loss32}
+
+
+def bf16_step_phase(dev, refs: "CpuRefs") -> None:
+    """Phase 13a: one bf16 + fp32-head train step at B=8 from the 300k EMA
+    weights on the card, on the inputs of ``ref_13a``, held to its CPU
+    step (``refs``' entry), beside each side's fp32 step."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 
     ph = phase("13a one bf16 train step, card vs CPU")
-    runs = {(dtype, d): sample_eval.load_run(RUN, compute_dtype=dtype, device=d)
-            for dtype in ("bfloat16", "float32") for d in (dev, "cpu")}
-    cfg = runs["bfloat16", dev][0]
-    models = {k: run[1].train() for k, run in runs.items()}
-    sched = create_schedule(cfg.diff_steps)
-    loss_fns = {d: train.build_darcy_loss_fn(sched, train.make_physics(cfg, d), cfg)
-                for d in (dev, "cpu")}
-    rng = np.random.default_rng(13)
-    idx, t = rng.integers(0, len(ds), 8), torch.from_numpy(rng.integers(0, cfg.diff_steps, 8))
-    batch = torch.from_numpy(ds.stacked()[idx])
-    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
-    on = {dev: (batch.to(dev), t.to(dev), noise.to(dev)), "cpu": (batch, t, noise)}
+    ref = refs.get("13a")
+    (cfg, model, _), (_, model32, _) = (
+        sample_eval.load_run(RUN, compute_dtype=dtype, device=dev)
+        for dtype in ("bfloat16", "float32"))
+    loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                        train.make_physics(cfg, dev), cfg)
+    on = tuple(a.to(dev) for a in ref["inputs"])
     before = launch_counts()
-    loss, grads = step_grads(loss_fns[dev], models["bfloat16", dev], *on[dev])
+    loss, grads = step_grads(loss_fn, model.train(), *on)
     torch.cuda.synchronize()
     # the activations reach K1 and K2 in bf16 (all but the fp32 head's K2)
     launched = tuple(tuple(a - b for a, b in zip(*rows)) for rows in zip(launch_counts(), before))
     if launched != BF16_STEP_LAUNCHES:
         raise AssertionError(f"bf16 step launches K1, K2, K4 (fwd, fwd bf16, bwd, bwd bf16) "
                              f"{launched}, want {BF16_STEP_LAUNCHES}")
-    loss32, grads32 = step_grads(loss_fns[dev], models["float32", dev], *on[dev])
-    loss_cpu, grads_cpu = step_grads(loss_fns["cpu"], models["bfloat16", "cpu"], *on["cpu"])
-    loss32_cpu = step_grads(loss_fns["cpu"], models["float32", "cpu"], *on["cpu"])[0]
-    done(ph, **hold_bf16_step(models["bfloat16", dev], loss, grads, loss32, grads32, loss_cpu,
-                              grads_cpu, loss32_cpu), launches=launched)
+    loss32, grads32 = step_grads(loss_fn, model32.train(), *on)
+    done(ph, **hold_bf16_step(model, loss, grads, loss32, grads32, ref["loss"], ref["grads"],
+                              ref["loss32"]), launches=launched, cpu_s=f"{ref['seconds']:.2f}")
 
 
 def hold_bf16_step(model, loss, grads, loss32, grads32, loss_cpu, grads_cpu,
@@ -1168,10 +1363,12 @@ def hold_bf16_step(model, loss, grads, loss32, grads32, loss_cpu, grads_cpu,
                 worst_tensor_share_of_limit=f"{worst:.2f}")
 
 
-def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int, float]:
-    """Phase 13 on phase 9's data in ``tmp``. Returns the launch counts of
-    the bf16 main-path run (K1's forward, K1's backward, K2's forward and
-    K2's backward, each on bf16 x) and its steps/s."""
+def bf16_train_phase(tmp: Path, dev, smi: str, later: list, refs: "CpuRefs"
+                     ) -> tuple[int, int, int, int, float]:
+    """Phase 13 on phase 9's data in ``tmp``; 13a's card vs CPU step goes to
+    ``later``. Returns the launch counts of the bf16 main-path run (K1's
+    forward, K1's backward, K2's forward and K2's backward, each on bf16 x)
+    and its steps/s."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
@@ -1187,7 +1384,7 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int, floa
     sched = create_schedule(cfg.diff_steps)
     loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, dev), cfg)
 
-    bf16_step_phase(ds, dev)
+    later.append(functools.partial(bf16_step_phase, dev, refs))
 
     ph = phase("13b loss of the 300k EMA weights, bf16 + fp32 head")
     data_v = torch.as_tensor(ds_valid.stacked(), device=dev)
@@ -1210,23 +1407,6 @@ def bf16_train_phase(tmp: Path, dev, smi: str) -> tuple[int, int, int, int, floa
                                               cfg, loss_fn, data, BF16_STEP_LAUNCHES, smi)
     del state, model
 
-    ph = phase("13d bf16 training CLI and bf16 sample_eval of its checkpoint")
-    out = tmp / "runs_bf16"
-    train.main(["--iterations", "3", "--batch-size", "8", "--data-dir", str(tmp / "train"),
-                "--valid-data-dir", str(tmp / "valid"), "--output-dir", str(out),
-                "--sample-freq", "1000", "--test-eval-freq", "2", "--log-freq", "1",
-                "--no-samples", "4", "--name", "smoke_bf16", "--compute-dtype", "bfloat16",
-                "--fp32-head"])
-    run = out / "smoke_bf16"
-    saved = json.loads((run / "config.json").read_text())
-    if (saved["compute_dtype"], saved["fp32_head"]) != ("bfloat16", True) or not (
-            run / "model" / "checkpoint_3.msgpack").exists():
-        raise AssertionError(f"bf16 training CLI outputs under {run}: config {saved}")
-    summary = sample_eval.evaluate(run, SAMPLES, "bfloat16", "cuda", seed=0, out=tmp / "eval_bf16")
-    if not np.isfinite(summary["res_b"]).all() or summary["checkpoint_step"] != 3:
-        raise AssertionError(f"bf16 sample_eval of the CLI's checkpoint: {summary}")
-    done(ph, residual_median_64_samples_after_4_steps=f"{summary['residual_median']:.4e}",
-         sampling_seconds=f"{summary['seconds']:.2f}")
     return got[0][1], got[0][3], got[1][1], got[1][3], steps_per_s
 
 
@@ -1236,9 +1416,15 @@ def k5_phase(dev, randn) -> dict:
 
     from physicsinformeddiffusionmodels_tpu_torch import profile_gn
     from physicsinformeddiffusionmodels_tpu_torch.ops import group_norm as gn
+    from physicsinformeddiffusionmodels_tpu_torch.utils.timing import graph_ms
 
-    max_err = 0.0
+    max_err, per_shape = 0.0, {}
     for n, c in K5_SHAPES:
+        plan = gn.k5_plan(64, n, c)
+        held = f"re-read past {plan.resident}" if plan.reread else "resident"
+        print(f"  K5 plan [64, {n}, {c}]: {plan.k} blocks a row (one cluster), {plan.tokens} "
+              f"tokens a block, {held}, {plan.smem} B of shared memory a block, "
+              f"{gn.k5_max_clusters(plan)} clusters at once", flush=True)
         x = randn(64, n, c, scale=2.0, shift=0.5).bfloat16()
         args = [x, randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1), randn(64, c, scale=0.1),
                 randn(64, c, scale=0.1)]
@@ -1256,19 +1442,28 @@ def k5_phase(dev, randn) -> dict:
                   f"{scale:.3e}", flush=True)
             if ref_name == "plain version":
                 max_err = max(max_err, err)
+        k5_ms, k2_ms = (graph_ms(lambda: f(*args))
+                        for f in (gn.group_norm_film_silu_packed, gn.group_norm_film_silu))
+        b_ms, _ = bound_ms(*k5_work(64, n, c))
+        per_shape[f"[64, {n}, {c}]"] = {"ms": k5_ms, "k2_fwd_ms": k2_ms, "bound_ms": b_ms}
+        print(f"  K5 [64, {n}, {c}]: {k5_ms * 1e3:.2f} us, K2 bf16 forward {k2_ms * 1e3:.2f} us, "
+              f"bound {b_ms * 1e3:.2f} us ({b_ms / k5_ms:.2f} of it)", flush=True)
         del x, args, out
     # K5's path: profile_gn at the level-0 shape
     gn.group_norm_film_silu_packed.launches = 0
-    r = profile_gn.profile(dev)
+    r = profile_gn.profile(dev, clusters=())  # the other cluster sizes: profile_gn alone
     launches = gn.group_norm_film_silu_packed.launches
-    if launches == 0 or r["k5_vs_k2_max_abs_diff"] > K5_TOL * r["max_abs_out"]:
-        raise AssertionError(f"profile_gn: K5 launches {launches}, max |K5 - K2| "
-                             f"{r['k5_vs_k2_max_abs_diff']:.3e} (max |out| {r['max_abs_out']:.3e})")
+    if launches == 0 or r["k5_vs_k2_max_abs_diff"] > K5_TOL * r["max_abs_out"] \
+            or r["k5_graph_kernel_and_all_nodes"] != (1, 1):
+        raise AssertionError(
+            f"profile_gn: K5 launches {launches}, max |K5 - K2| "
+            f"{r['k5_vs_k2_max_abs_diff']:.3e} (max |out| {r['max_abs_out']:.3e}), a graph of one "
+            f"call: kernel and all nodes {r['k5_graph_kernel_and_all_nodes']} (want (1, 1))")
     print("  profile_gn: " + json.dumps(r), flush=True)
     b_ms, b_by = bound_ms(*k5_work(profile_gn.B, profile_gn.N, profile_gn.C))
     return {"name": "group_norm_film_silu_packed", "launches": launches, "max_abs_err": max_err,
             "ms": r["k5_ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "per_shape": per_shape}
 
 
 def k3_phase(dev, randn, k1_args, distinct) -> tuple[dict, dict]:
@@ -1479,11 +1674,42 @@ def k4_phase(dev, randn) -> tuple[dict, dict]:
     return entries[0], entries[1]
 
 
+def cm_checkpoint_forward(tmp: Path) -> None:
+    """Phase 15c (in the window after 19d): the 300k checkpoint's cm
+    forward at B=8, card vs CPU (phase 5's tolerance), beside the card's
+    default forward."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+
+    dev = torch.device("cuda")
+    ph = phase("15c cm checkpoint forward, card vs CPU")
+    _, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
+    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 8))
+    with torch.no_grad():
+        y_default = model(x.to(dev), t.to(dev)).cpu()
+        model.cm_conv_stages = model_cpu.cm_conv_stages = True
+        y = model(x.to(dev), t.to(dev)).cpu()
+        with serial("cpu_references", "15c"):
+            y_ref = model_cpu(x, t)
+    err = (y - y_ref).abs().max().item()
+    # the transplant tolerance, as phase 5
+    if y.shape != (8, 64, 64, 2) or not torch.isfinite(y).all() or err > 5e-4:
+        raise AssertionError(f"cm checkpoint forward: card vs CPU max |diff| {err:.3e}")
+    del model_cpu
+    done(ph, max_abs_err=f"{err:.3e}",
+         cm_vs_default_max_abs_diff=f"{(y - y_default).abs().max().item():.3e}")
+
+
 def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict,
-             later: list) -> tuple:
+             later: list, refs: "CpuRefs") -> tuple:
     """Phases 15c-f on phase 9's data in ``tmp``: the cm UNet's checkpoint
-    forward card vs CPU, cm sampling against phase 6's ``plain_summary``,
-    one cm train step card vs CPU (to ``later``), then the cm training main
+    forward card vs CPU (``cm_checkpoint_forward``) and one cm train step
+    card vs CPU (both to ``later``), cm sampling against phase 6's
+    ``plain_summary``, then the cm training main
     paths, fp32 and bf16 + fp32 head, their steps/s beside 9d's and 13c's
     (``steps_per_s``). Returns K4's launch counts of the two runs
     (launch_counts()'s row)."""
@@ -1493,32 +1719,16 @@ def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict,
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 
-    ph = phase("15c cm checkpoint forward, card vs CPU")
     cfg, model, _ = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
-    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, 100, 8))
-    with torch.no_grad():
-        y_default = model(x.to(dev), t.to(dev)).cpu()
-        model.cm_conv_stages = model_cpu.cm_conv_stages = True
-        y = model(x.to(dev), t.to(dev)).cpu()
-        y_ref = model_cpu(x, t)
-    err = (y - y_ref).abs().max().item()
-    # the transplant tolerance, as phase 5
-    if y.shape != (8, 64, 64, 2) or not torch.isfinite(y).all() or err > 5e-4:
-        raise AssertionError(f"cm checkpoint forward: card vs CPU max |diff| {err:.3e}")
-    del model_cpu
-    done(ph, max_abs_err=f"{err:.3e}",
-         cm_vs_default_max_abs_diff=f"{(y - y_default).abs().max().item():.3e}")
-
+    model.cm_conv_stages = True
     ph = phase("15d cm sampling (main path)")
     zero_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    samples, residual, _ = sample_eval.sample_darcy(cfg, model, SAMPLES, 0, dev)
-    res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
-    seconds = time.perf_counter() - t0
+    with timed("15d"):
+        t0 = time.perf_counter()
+        samples, residual, _ = sample_eval.sample_darcy(cfg, model, SAMPLES, 0, dev)
+        res_b = residual.abs().mean(dim=(1, 2)).cpu().numpy()
+        seconds = time.perf_counter() - t0
     launches = tuple(row[0] for row in launch_counts())
     want = (8 * STEPS, 20 * STEPS, 18 * STEPS)
     med, med_default = float(np.nanmedian(res_b)), plain_summary["residual_median"]
@@ -1537,8 +1747,9 @@ def cm_phase(tmp: Path, dev, smi: str, plain_summary: dict, steps_per_s: dict,
 
     ds = load_darcy_dataset(tmp / "train")
     data = torch.as_tensor(ds.stacked(), device=dev)
-    later.append(functools.partial(step_card_vs_cpu, "15e one cm train step, card vs CPU",
-                                   dev, ds, cm=True))
+    later += [functools.partial(cm_checkpoint_forward, tmp),
+              functools.partial(step_card_vs_cpu, "15e one cm train step, card vs CPU", dev,
+                                refs, cm=True)]
     counts = []
     for dtype, per_step, what, before in (
             ("float32", CM_FP32_STEP_LAUNCHES, "15e cm training, fp32", "9d"),
@@ -1566,7 +1777,9 @@ def sampling_main_path(what: str, run: Path, out: Path, per_step: tuple, median_
 
     ph = phase(what)
     zero_launch_counts()
-    summary = sample_eval.evaluate(run, SAMPLES, "float32", "cuda", seed=0, out=out, **overrides)
+    with timed(what.split()[0]):
+        summary = sample_eval.evaluate(run, SAMPLES, "float32", "cuda", seed=0, out=out,
+                                       **overrides)
     launches = tuple(row[0] for row in launch_counts())
     want = tuple(STEPS * n for n in per_step)
     med = summary["residual_median"]
@@ -1581,7 +1794,7 @@ def sampling_main_path(what: str, run: Path, out: Path, per_step: tuple, median_
     return summary
 
 
-def ddim_phase(tmp: Path, dev, smi: str, later: list) -> float:
+def ddim_phase(tmp: Path, dev, smi: str, later: list, refs: "CpuRefs") -> float:
     """Phase 16 on phase 9's data in ``tmp``: the DDIM run's sampling, one
     DDIM train step card vs CPU (to ``later``), then its training main
     path. Returns that path's steps/s."""
@@ -1595,7 +1808,7 @@ def ddim_phase(tmp: Path, dev, smi: str, later: list) -> float:
                        (8, 38, 0), DDIM_MEDIAN_RANGE)
     ds = load_darcy_dataset(tmp / "train")
     later.append(functools.partial(step_card_vs_cpu, "16b one DDIM train step, card vs CPU",
-                                   dev, ds, run=SAMPLE_RUN, batch_size=DDIM_BATCH))
+                                   dev, refs, run=SAMPLE_RUN))
     cfg, model, _ = sample_eval.load_run(SAMPLE_RUN, compute_dtype="float32", device=dev)
     cfg.compute_dtype = "float32"
     if not (cfg.use_ddim_x0 and cfg.ddim_steps == 0 and cfg.train_batch_size == DDIM_BATCH):
@@ -1610,17 +1823,14 @@ def ddim_phase(tmp: Path, dev, smi: str, later: list) -> float:
     return steps_per_s
 
 
-def guidance_phase(tmp: Path, dev, smi: str, later: list) -> float:
-    """Phase 17 on phase 9's data in ``tmp``: the guided run's conditioned
-    forward card vs CPU, guided sampling at scales 1 and 3, one guided train
-    step card vs CPU at B=64 with a mixed null mask (to ``later``), then its
-    training main path in the run's bf16. Returns that path's steps/s."""
+def guided_forward(tmp: Path) -> None:
+    """Phase 17a (in the window after 19d): the guided run's conditioned
+    forward (a mixed null mask) and the residual gradient, card vs CPU."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
-    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
-    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
 
+    dev = torch.device("cuda")
     ph = phase("17a guided checkpoint forward with cond, card vs CPU")
     cfg, model, _ = sample_eval.load_run(GUIDED_RUN, compute_dtype="float32", device=dev)
     _, model_cpu, _ = sample_eval.load_run(GUIDED_RUN, compute_dtype="float32", device="cpu")
@@ -1635,8 +1845,9 @@ def guidance_phase(tmp: Path, dev, smi: str, later: list) -> float:
     cond_err = (cond.cpu() - cond_cpu).abs().max().item()
     with torch.no_grad():
         y = model(x.to(dev), t.to(dev), cond=cond_cpu.to(dev), null_mask=mask.to(dev)).cpu()
-        y_ref = model_cpu(x, t, cond=cond_cpu, null_mask=mask)
-        y_plain = model_cpu(x, t)
+        with serial("cpu_references", "17a"):
+            y_ref = model_cpu(x, t, cond=cond_cpu, null_mask=mask)
+            y_plain = model_cpu(x, t)
     err = (y - y_ref).abs().max().item()
     # the transplant tolerance, as phase 5; the residual gradient as phase 11's
     if (not torch.isfinite(y).all() or err > 5e-4
@@ -1647,6 +1858,20 @@ def guidance_phase(tmp: Path, dev, smi: str, later: list) -> float:
     done(ph, max_abs_err=f"{err:.3e}", residual_gradient_max_abs_err=f"{cond_err:.3e}",
          cond_vs_uncond_max_abs_diff=f"{(y_ref - y_plain).abs().max().item():.3e}")
 
+
+def guidance_phase(tmp: Path, dev, smi: str, later: list, refs: "CpuRefs") -> float:
+    """Phase 17 on phase 9's data in ``tmp``: the guided run's conditioned
+    forward card vs CPU (``guided_forward``) and one guided train step card
+    vs CPU at B=64 with a mixed null mask (both to ``later``), guided
+    sampling at scales 1 and 3, then its
+    training main path in the run's bf16. Returns that path's steps/s."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    later.append(functools.partial(guided_forward, tmp))
     medians = {}
     for scale, ref in GUIDED_JAX_FP32_MEDIANS.items():
         summary = sampling_main_path(
@@ -1662,7 +1887,7 @@ def guidance_phase(tmp: Path, dev, smi: str, later: list) -> float:
 
     ds = load_darcy_dataset(tmp / "train")
     later.append(functools.partial(step_card_vs_cpu, "17c one guided train step, card vs CPU",
-                                   dev, ds, run=GUIDED_RUN, batch_size=TRAIN_BATCH))
+                                   dev, refs, run=GUIDED_RUN))
     cfg, model, _ = sample_eval.load_run(GUIDED_RUN, device=dev)
     loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
                                         train.make_physics(cfg, dev), cfg)
@@ -1689,32 +1914,35 @@ def _recipe(run: Path, dtype, dev, ema_start=None):
     return cfg, model.train(), loss_fn
 
 
-def graph_phase(tmp: Path, dev, smi: str, steps_per_s: dict) -> None:
-    """Phase 18 on phase 9's data in ``tmp``: (a) GRAPH_STEPS steps replayed
-    from ``trainer.GraphedTrainStep`` against as many eager steps from the
-    same weights and draws, bit for bit (weights, EMA, Adam's moments and
-    step, the optimizer's count, the last loss), under cuDNN's deterministic
-    algorithms, in fp32, bf16 + fp32 head and the guided recipe, with
-    ``ema_start`` inside the run (two captures); (b) steps/s of 9d's and
-    13c's training eager and from the graph, GRAPH_TIMED_STEPS each, in
-    turns (eager, graph, graph, eager), beside 9d's and 13c's own."""
+def _train_steps(data, state, cfg, loss_fn, gen, n, graphed=None):
+    """``n`` resident train steps on ``data`` at TRAIN_BATCH (replays of
+    ``graphed`` when given); returns the last step's aux."""
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import resident_train_step
+
+    for _ in range(n):
+        aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps, cfg.seed,
+                                  gen, ema_mu=cfg.ema_decay, ema_start=cfg.ema_start,
+                                  null_cond_prob=train.null_cond_prob(cfg), graphed=graphed)
+    return aux
+
+
+def graph_bit_equality(tmp: Path) -> None:
+    """Phase 18a on 9a's sets in ``tmp`` (the card lane runs it):
+    GRAPH_STEPS steps replayed from ``trainer.GraphedTrainStep`` against as
+    many eager steps from the same weights and draws, bit for bit (weights,
+    EMA, Adam's moments and step, the optimizer's count, the last loss),
+    under cuDNN's deterministic algorithms, in fp32, bf16 + fp32 head and
+    the guided recipe, with ``ema_start`` inside the run (two captures)."""
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch import train
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
-        GraphedTrainStep, create_train_state, make_optimizer, resident_train_step)
+        GraphedTrainStep, create_train_state, make_optimizer)
 
+    dev = torch.device("cuda")
     data = torch.as_tensor(load_darcy_dataset(tmp / "train").stacked(), device=dev)
-
-    def steps(state, cfg, loss_fn, gen, n, graphed=None):
-        for _ in range(n):
-            aux = resident_train_step(state, loss_fn, data, TRAIN_BATCH, cfg.diff_steps,
-                                      cfg.seed, gen, ema_mu=cfg.ema_decay,
-                                      ema_start=cfg.ema_start,
-                                      null_cond_prob=train.null_cond_prob(cfg), graphed=graphed)
-        return aux
-
+    steps = functools.partial(_train_steps, data)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         for name, run, dtype, per_step in (
@@ -1767,6 +1995,21 @@ def graph_phase(tmp: Path, dev, smi: str, steps_per_s: dict) -> None:
                  eager_s=f"{sec_e:.2f}", graph_s_with_captures=f"{sec_g:.2f}")
             del runs, eager, replay, graphed
 
+
+def graph_phase(tmp: Path, dev, smi: str, steps_per_s: dict) -> None:
+    """Phase 18b on phase 9's data in ``tmp`` (18a: ``graph_bit_equality``):
+    steps/s of 9d's and 13c's training eager and from the graph,
+    GRAPH_TIMED_STEPS each, in turns (eager, graph, graph, eager), beside
+    9d's and 13c's own."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+    from physicsinformeddiffusionmodels_tpu_torch.training.trainer import (
+        GraphedTrainStep, create_train_state, make_optimizer)
+
+    data = torch.as_tensor(load_darcy_dataset(tmp / "train").stacked(), device=dev)
+    steps = functools.partial(_train_steps, data)
+
     for key, dtype in (("9d", "float32"), ("13c", "bfloat16")):
         ph = phase(f"18b steps/s of {key} eager and from the graph")
         cfg, model, loss_fn = _recipe(RUN, dtype, dev)
@@ -1777,12 +2020,13 @@ def graph_phase(tmp: Path, dev, smi: str, steps_per_s: dict) -> None:
         steps(state, cfg, loss_fn, gen, 1, graphed)  # the capture
         rates = {"eager": [], "graph": []}
         for mode in ("eager", "graph", "graph", "eager"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            steps(state, cfg, loss_fn, gen, GRAPH_TIMED_STEPS,
-                  graphed if mode == "graph" else None)
-            torch.cuda.synchronize()
-            rates[mode].append(GRAPH_TIMED_STEPS / (time.perf_counter() - t0))
+            with timed("18b"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps(state, cfg, loss_fn, gen, GRAPH_TIMED_STEPS,
+                      graphed if mode == "graph" else None)
+                torch.cuda.synchronize()
+                rates[mode].append(GRAPH_TIMED_STEPS / (time.perf_counter() - t0))
         eager_sps, graph_sps = float(np.mean(rates["eager"])), float(np.mean(rates["graph"]))
         steps_per_s[f"{key} graph"] = graph_sps
         done(ph, eager_steps_per_s="/".join(f"{r:.3f}" for r in rates["eager"]),
@@ -1829,23 +2073,29 @@ def kernel_calls(model, x, t) -> tuple[list, list]:
     return k1, k2
 
 
-def mech_data_phase(root: Path, dev, jobs: DataJobs) -> dict:
-    """Phase 19a: MECH_SETS under ``root`` (``jobs``' mechanics part); the
-    fields' own residual and the card's PCG on their designs. Returns the
-    sets (host arrays) by name."""
+def mech_sets(root: Path, jobs: DataJobs) -> tuple[dict, float]:
+    """MECH_SETS under ``root`` (``jobs``' mechanics part): the sets (host
+    arrays) by name, and the seconds they took."""
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import NpyFieldDataset
+
+    gen_s = jobs.wait("mechanics")
+    return {name: NpyFieldDataset(root / sub / "fields").stacked()
+            for name, sub in (("train", "train"), ("valid", "test/valid"),
+                              ("test_level_1", "test/test_level_1"),
+                              ("test_level_2", "test/test_level_2"))}, gen_s
+
+
+def mech_data_phase(dev, sets: dict, gen_s: float) -> None:
+    """Phase 19a (in the window after 19d) on ``mech_sets``' sets: the
+    fields' own residual and the card's PCG on their designs against the
+    host's float64 sparse-LU solve."""
     import scipy.sparse.linalg as spla
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import NpyFieldDataset
     from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
         MechanicsResidual, split_mechanics_batch)
 
     ph = phase("19a mechanics data (port generator), its residual and PCG on the card")
-    gen_s = jobs.wait("mechanics")
-    sets = {name: NpyFieldDataset(root / sub / "fields").stacked()
-            for name, sub in (("train", "train"), ("valid", "test/valid"),
-                              ("test_level_1", "test/test_level_1"),
-                              ("test_level_2", "test/test_level_2"))}
     fields = torch.as_tensor(np.concatenate(list(sets.values())), device=dev)
     n = fields.shape[0]
     mech = MechanicsResidual(64, device=dev)
@@ -1860,11 +2110,12 @@ def mech_data_phase(root: Path, dev, jobs: DataJobs) -> dict:
     iters, seconds, relres_max, ce_max, fallbacks = [], [], 0.0, 0.0, 0
     for start in range(0, n, MECH_BATCH):
         sl = slice(start, start + MECH_BATCH)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        u_sol, relres, k = mech.solve(rho[sl], mb.bcs[sl])
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t1)
+        with timed("19a"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            u_sol, relres, k = mech.solve(rho[sl], mb.bcs[sl])
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
         iters.append(int(k))
         relres_max = max(relres_max, relres.max().item())
         if not torch.isfinite(u_sol).all() or relres.max().item() > PCG_RELRES_MAX:
@@ -1886,17 +2137,145 @@ def mech_data_phase(root: Path, dev, jobs: DataJobs) -> dict:
          pcg_iterations="/".join(map(str, iters)), pcg_s="/".join(f"{v:.2f}" for v in seconds),
          pcg_relres_max=f"{relres_max:.3e}", pcg_compliance_err_max=f"{ce_max:.3e}",
          host_check_fallbacks=f"{fallbacks}/{n}")
-    return sets
+
+
+def mech_models(cfg, dtypes, dev) -> tuple[dict, dict]:
+    """The mechanics UNet's seeded weights (MECH_SEED, initialised on the
+    CPU) and a model of them in each of ``dtypes`` on ``dev``."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
+
+    torch.manual_seed(MECH_SEED)
+    weights = build_model(cfg, "float32").state_dict()
+    models = {}
+    for dtype in dtypes:
+        with torch.device("meta"):  # no initialisation: the seeded weights go in
+            models[dtype] = build_model(cfg, dtype)
+        models[dtype].load_state_dict({k: v.to(dev, copy=True) for k, v in weights.items()},
+                                      assign=True)
+    return weights, models
+
+
+def ref_19c(tmp: Path) -> dict:
+    """The CPU half of phase 19c (computed by the CPU-reference worker): at
+    B=MECH_STEP_BATCH, the seeded mechanics UNet's fp32 forward of x and t
+    drawn from seed 19, then one fp32 and one bf16 + fp32-head train step
+    of the mechanics loss on a batch of 19a's training set in ``tmp`` and
+    noise drawn after them."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import NpyFieldDataset
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import MechanicsResidual
+    from physicsinformeddiffusionmodels_tpu_torch.train_mechanics import (
+        MECHANICS_DEFAULTS, SOLUTION_CHANNELS, build_mechanics_loss_fn)
+
+    cfg = RunConfig(gov_eqs="mechanics", **MECHANICS_DEFAULTS, compute_dtype="bfloat16",
+                    fp32_head=True)
+    _, models = mech_models(cfg, ("float32", "bfloat16"), "cpu")
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((MECH_STEP_BATCH, 64, 64, 10)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, cfg.diff_steps, MECH_STEP_BATCH))
+    train = NpyFieldDataset(tmp / "mechanics" / "train" / "fields").stacked()
+    batch = torch.from_numpy(train[rng.integers(0, len(train), MECH_STEP_BATCH)])
+    noise = torch.from_numpy(rng.standard_normal(
+        (MECH_STEP_BATCH, 65, 65, SOLUTION_CHANNELS)).astype(np.float32))
+    with torch.no_grad():
+        y = models["float32"](x, t)
+    loss_fn = build_mechanics_loss_fn(create_schedule(cfg.diff_steps),
+                                      MechanicsResidual(64, device="cpu"), cfg)
+    loss, _ = loss_fn(models["float32"], batch, t, noise)
+    grads = torch.autograd.grad(loss, list(models["float32"].parameters()), allow_unused=True)
+    loss16, grads16 = step_grads(loss_fn, models["bfloat16"], batch, t, noise)
+    return {"inputs": (x, t, batch, noise), "y": y, "loss": loss.detach(), "grads": list(grads),
+            "loss16": loss16, "grads16": list(grads16)}
+
+
+def mech_steps_card_vs_cpu(dev, refs: "CpuRefs", models: dict, loss_fn) -> None:
+    """Phase 19c on the card: the seeded mechanics UNet (``models`` by
+    dtype), on the inputs of ``ref_19c``, held to its CPU half (``refs``'
+    entry): the fp32 forward (the transplant tolerance, the density a
+    sigmoid's), the fp32 step by 9b's rules, the bf16 + fp32-head step by
+    13a's."""
+    import torch
+
+    ph = phase("19c full-width fp32 forward, card vs CPU")
+    ref = refs.get("19c")
+    x, t, batch, noise = (a.to(dev) for a in ref["inputs"])
+    with torch.no_grad():
+        y = models["float32"](x, t).cpu()
+    y_ref = ref["y"]
+    err = (y - y_ref).abs().max().item()
+    if (y.shape != (MECH_STEP_BATCH, 64, 64, 3) or not torch.isfinite(y).all() or err > 5e-4
+            or not 0.0 <= y[..., 2].min().item() <= y[..., 2].max().item() <= 1.0):
+        raise AssertionError(f"19c forward: card vs CPU max |diff| {err:.3e}, shape "
+                             f"{tuple(y.shape)}")
+    done(ph, batch=MECH_STEP_BATCH, max_abs_err=f"{err:.3e}",
+         max_abs_out=f"{y_ref.abs().max().item():.3e}")
+
+    ph = phase("19c one fp32 mechanics train step, card vs CPU")
+    loss, _ = loss_fn(models["float32"], batch, t, noise)
+    grads = torch.autograd.grad(loss, list(models["float32"].parameters()), allow_unused=True)
+    done(ph, batch=MECH_STEP_BATCH, **hold_fp32_step(models["float32"], loss, grads,
+                                                     ref["loss"], ref["grads"]),
+         cpu_s=f"{ref['seconds']:.2f}")
+    ph = phase("19c one bf16 + fp32-head mechanics train step, card vs CPU")
+    before = launch_counts()
+    loss16, grads16 = step_grads(loss_fn, models["bfloat16"], batch, t, noise)
+    torch.cuda.synchronize()
+    launched = tuple(tuple(a - b for a, b in zip(*rows)) for rows in zip(launch_counts(), before))
+    if launched != BF16_STEP_LAUNCHES:
+        raise AssertionError(f"19c bf16 step launches K1, K2, K4 {launched}, "
+                             f"want {BF16_STEP_LAUNCHES}")
+    done(ph, **hold_bf16_step(models["bfloat16"], loss16, grads16, loss.item(), grads,
+                              ref["loss16"], ref["grads16"], ref["loss"].item()),
+         launches=launched)
+    models.clear()
+
+
+def mech_sweep(tmp: Path) -> None:
+    """Phase 19e in ``tmp`` (in the window after 19d): ``sample_eval``'s
+    mechanics sweep of 19d's CLI checkpoint, one batch of MECH_BATCH a test
+    level: the five CSVs a level, every metric finite, launches counted."""
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+
+    ph = phase("19e sample_eval mechanics sweep of the CLI's checkpoint (beside phase 23's "
+               "ranks: its samples/s are a shared card's)")
+    zero_launch_counts()
+    summary = sample_eval.evaluate(tmp / "mech_runs" / "mech", MECH_BATCH, device="cuda", seed=0,
+                                   out=tmp / "mech_eval", test_batches=1,
+                                   test_data_root=tmp / "mechanics")
+    launches, want = launch_counts(), launches_of(2 * STEPS, MECH_FWD_LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"19e: launches K1, K2, K4 {launches}, want {want}")
+    info = {}
+    for level, lv in summary["levels"].items():
+        ldir = tmp / "mech_eval" / level
+        missing = [n for n in ("residuals", "rel_CE_error", "rel_vf_error", "fm_error",
+                               "sample_statistics") if not (ldir / f"{n}.csv").exists()]
+        metrics = np.concatenate([lv[k] for k in ("res_b", "rel_CE", "rel_vf", "fm")])
+        if missing or lv["n"] != MECH_BATCH or not np.isfinite(metrics).all():
+            raise AssertionError(f"19e {level}: missing {missing}, n {lv['n']}, finite "
+                                 f"{np.isfinite(metrics).all()}")
+        info[level] = (f"rel_CE median {lv['rel_CE_median']:.4e}, residual median "
+                       f"{lv['residual_median']:.4e}, fallbacks {lv['n_solve_fallback']}, "
+                       f"{lv['samples_per_s']:.2f} samples/s ({MECH_BATCH} x {STEPS} steps), "
+                       f"PCG {lv['solve_seconds']:.2f} s ({lv['solve_iterations']} iterations)")
+        print(f"  {level}: {info[level]}", flush=True)
+    done(ph, launches="/".join(str(row) for row in launches))
 
 
 def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
-                    after_timing) -> tuple[tuple, tuple, dict]:
-    """Phase 19 in ``tmp``, on ``jobs``' mechanics sets; ``after_timing()``
-    is called when 19d's steps/s are taken, before 19e. Returns K1's and
-    K2's launch counts of 19d's CLI run and the steps/s of 19d."""
+                    after_timing, later: list, refs: "CpuRefs") -> tuple[tuple, tuple, dict]:
+    """Phase 19 in ``tmp``, on ``jobs``' mechanics sets (19e:
+    ``mech_sweep``); ``after_timing()`` is called when 19d's steps/s are
+    taken; 19c's card vs CPU checks go to ``later``. Returns K1's and K2's
+    launch counts of 19d's CLI run and the steps/s of 19d."""
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch import sample_eval, train
+    from physicsinformeddiffusionmodels_tpu_torch import train
     from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
     from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
@@ -1911,86 +2290,45 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
         GraphedTrainStep, create_train_state, make_optimizer, resident_train_step)
 
     root = tmp / "mechanics"
-    sets = mech_data_phase(root, dev, jobs)
-
-    ph = phase("19b K1 and K2 at the mechanics UNet's shapes")
+    sets, gen_s = mech_sets(root, jobs)
     cfg = RunConfig(gov_eqs="mechanics", **MECHANICS_DEFAULTS, compute_dtype="bfloat16",
                     fp32_head=True)
-    torch.manual_seed(MECH_SEED)
-    models = {("float32", "cpu"): build_model(cfg, "float32")}
-    weights = models["float32", "cpu"].state_dict()
-    for dtype, d in (("float32", dev), ("bfloat16", dev), ("bfloat16", "cpu")):
-        with torch.device("meta"):  # no initialisation: the seeded weights go in
-            models[dtype, d] = build_model(cfg, dtype)
-        models[dtype, d].load_state_dict({k: v.to(d, copy=True) for k, v in weights.items()},
-                                         assign=True)
+    weights, models = mech_models(cfg, ("float32", "bfloat16"), dev)
     n_params = sum(p.numel() for p in weights.values())
-    rng = np.random.default_rng(19)
-    x = torch.from_numpy(rng.standard_normal((MECH_STEP_BATCH, 64, 64, 10)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, cfg.diff_steps, MECH_STEP_BATCH))
-    k1_calls, k2_calls = kernel_calls(models["bfloat16", dev], x[:1].to(dev), t[:1].to(dev))
-    print(f"  K1 calls (N, C, dtype): {k1_calls}", flush=True)
-    print(f"  K2 calls (N, C, FiLM, dtype): {k2_calls}", flush=True)
-    if len(k1_calls) != 8 or len(k2_calls) != 38:
-        raise AssertionError(f"19b: {len(k1_calls)} K1 and {len(k2_calls)} K2 calls a forward")
-    k1_shapes = list(dict.fromkeys(c[:2] for c in k1_calls))
-    k2_shapes = list(dict.fromkeys(c[:3] for c in k2_calls))
-    print_k2_plans(MECH_BATCH, [c[:2] for c in k2_shapes])
-    for backward in (False, True):
-        suffix = "_backward" if backward else ""
-        check_mechanics("linear_attention_block" + suffix, linear_attention_block,
-                        linear_attention_block_plain, k1_args, k1_shapes, backward,
-                        part=None if backward else k1_term)
-        check_mechanics("group_norm_film_silu" + suffix, group_norm_film_silu,
-                        group_norm_film_silu_plain, k2_args, k2_shapes, backward)
-    done(ph, parameters=n_params, k1_shapes=len(k1_shapes), k2_shapes=len(k2_shapes))
+    del weights
 
-    ph = phase("19c full-width fp32 forward, card vs CPU")
-    with torch.no_grad():
-        y = models["float32", dev](x.to(dev), t.to(dev)).cpu()
-        y_ref = models["float32", "cpu"](x, t)
-    err = (y - y_ref).abs().max().item()
-    # the transplant tolerance, as phase 5; the density channel is a sigmoid's
-    if (y.shape != (MECH_STEP_BATCH, 64, 64, 3) or not torch.isfinite(y).all() or err > 5e-4
-            or not 0.0 <= y[..., 2].min().item() <= y[..., 2].max().item() <= 1.0):
-        raise AssertionError(f"19c forward: card vs CPU max |diff| {err:.3e}, shape "
-                             f"{tuple(y.shape)}")
-    done(ph, batch=MECH_STEP_BATCH, max_abs_err=f"{err:.3e}",
-         max_abs_out=f"{y_ref.abs().max().item():.3e}")
+    def mechanics_kernel_calls():
+        """19b: K1 and K2 at every (N, C) of the UNet's calls."""
+        ph = phase("19b K1 and K2 at the mechanics UNet's shapes")
+        rng = np.random.default_rng(19)
+        x = torch.from_numpy(rng.standard_normal((MECH_STEP_BATCH, 64, 64, 10))
+                             .astype(np.float32))
+        t = torch.from_numpy(rng.integers(0, cfg.diff_steps, MECH_STEP_BATCH))
+        k1_calls, k2_calls = kernel_calls(models["bfloat16"], x[:1].to(dev), t[:1].to(dev))
+        print(f"  K1 calls (N, C, dtype): {k1_calls}", flush=True)
+        print(f"  K2 calls (N, C, FiLM, dtype): {k2_calls}", flush=True)
+        if len(k1_calls) != 8 or len(k2_calls) != 38:
+            raise AssertionError(f"19b: {len(k1_calls)} K1 and {len(k2_calls)} K2 calls a "
+                                 "forward")
+        k1_shapes = list(dict.fromkeys(c[:2] for c in k1_calls))
+        k2_shapes = list(dict.fromkeys(c[:3] for c in k2_calls))
+        print_k2_plans(MECH_BATCH, [c[:2] for c in k2_shapes])
+        for backward in (False, True):
+            suffix = "_backward" if backward else ""
+            check_mechanics("linear_attention_block" + suffix, linear_attention_block,
+                            linear_attention_block_plain, k1_args, k1_shapes, backward,
+                            part=None if backward else k1_term)
+            check_mechanics("group_norm_film_silu" + suffix, group_norm_film_silu,
+                            group_norm_film_silu_plain, k2_args, k2_shapes, backward)
+        done(ph, parameters=n_params, k1_shapes=len(k1_shapes), k2_shapes=len(k2_shapes))
 
-    sched = create_schedule(cfg.diff_steps)
-    loss_fns = {d: build_mechanics_loss_fn(sched, MechanicsResidual(64, device=d), cfg)
-                for d in (dev, "cpu")}
-    batch = torch.from_numpy(sets["train"][rng.integers(0, len(sets["train"]), MECH_STEP_BATCH)])
-    noise = torch.from_numpy(rng.standard_normal(
-        (MECH_STEP_BATCH, 65, 65, SOLUTION_CHANNELS)).astype(np.float32))
-    on = {dev: (batch.to(dev), t.to(dev), noise.to(dev)), "cpu": (batch, t, noise)}
-    ph = phase("19c one fp32 mechanics train step, card vs CPU")
-    steps = {}
-    for d in (dev, "cpu"):
-        t1 = time.perf_counter()
-        loss, _ = loss_fns[d](models["float32", d], *on[d])
-        steps[d] = (loss, torch.autograd.grad(loss, list(models["float32", d].parameters()),
-                                              allow_unused=True), time.perf_counter() - t1)
-    done(ph, batch=MECH_STEP_BATCH, **hold_fp32_step(models["float32", dev], steps[dev][0],
-                                                     steps[dev][1], steps["cpu"][0],
-                                                     steps["cpu"][1]),
-         card_s=f"{steps[dev][2]:.2f}", cpu_s=f"{steps['cpu'][2]:.2f}")
-    ph = phase("19c one bf16 + fp32-head mechanics train step, card vs CPU")
-    before = launch_counts()
-    loss16, grads16 = step_grads(loss_fns[dev], models["bfloat16", dev], *on[dev])
-    torch.cuda.synchronize()
-    launched = tuple(tuple(a - b for a, b in zip(*rows)) for rows in zip(launch_counts(), before))
-    if launched != BF16_STEP_LAUNCHES:
-        raise AssertionError(f"19c bf16 step launches K1, K2, K4 {launched}, "
-                             f"want {BF16_STEP_LAUNCHES}")
-    t1 = time.perf_counter()
-    loss16_cpu, grads16_cpu = step_grads(loss_fns["cpu"], models["bfloat16", "cpu"], *on["cpu"])
-    cpu_s = time.perf_counter() - t1
-    done(ph, **hold_bf16_step(models["bfloat16", dev], loss16, grads16, steps[dev][0].item(),
-                              steps[dev][1], loss16_cpu, grads16_cpu, steps["cpu"][0].item()),
-         launches=launched, cpu_s=f"{cpu_s:.2f}")
-    del models, steps, grads16, grads16_cpu, weights
+    # 19a-c time nothing: they run in the window after 19d (19b's kernel
+    # checks draw their inputs from the shared generator, as before: nothing
+    # else draws from it after 15ab)
+    loss_fn = build_mechanics_loss_fn(create_schedule(cfg.diff_steps),
+                                      MechanicsResidual(64, device=dev), cfg)
+    later += [mechanics_kernel_calls, functools.partial(mech_data_phase, dev, sets, gen_s),
+              functools.partial(mech_steps_card_vs_cpu, dev, refs, models, loss_fn)]
 
     # 19d: the CLI; step 0 runs eager, the rest in chunks replayed from a graph
     ph = phase("19d mechanics training CLI, bf16 + fp32 head (main path)")
@@ -2006,10 +2344,11 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
     zero_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    train.main(args)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t1
+    with timed("19d"):
+        t1 = time.perf_counter()
+        train.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
     # train-step wrapper calls: step 0, and the graph's two warm-up steps and
     # capture (a replay makes none); forward-only: the evaluations and sampling
     step_calls = 1 + GraphedTrainStep.WARMUP + 1
@@ -2041,7 +2380,6 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
     torch.manual_seed(MECH_SEED)
     model = build_model(cfg).to(dev)
     state = create_train_state(model, make_optimizer(model, cfg.lr, cfg.grad_clip))
-    loss_fn = loss_fns[dev]
     graphed = GraphedTrainStep(state, loss_fn, cfg.ema_decay, cfg.ema_start)
     gen = torch.Generator(device=dev)
 
@@ -2057,11 +2395,12 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
     run(1, graphed)  # the capture
     rates = {"eager": [], "graph": []}
     for mode in ("eager", "graph", "graph", "eager"):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        aux = run(MECH_TIMED_STEPS, graphed if mode == "graph" else None)
-        torch.cuda.synchronize()
-        rates[mode].append(MECH_TIMED_STEPS / (time.perf_counter() - t1))
+        with timed("19d"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            aux = run(MECH_TIMED_STEPS, graphed if mode == "graph" else None)
+            torch.cuda.synchronize()
+            rates[mode].append(MECH_TIMED_STEPS / (time.perf_counter() - t1))
     if not np.isfinite(aux.loss.item()):
         raise AssertionError(f"19d: loss {aux.loss.item()}")
     steps_per_s = {"19d": float(np.mean(rates["eager"])),
@@ -2073,39 +2412,13 @@ def mechanics_phase(tmp: Path, dev, smi: str, k1_args, k2_args, jobs: DataJobs,
     del state, graphed, model, data
     after_timing()
 
-    ph = phase("19e sample_eval mechanics sweep of the CLI's checkpoint (beside phase 23's "
-               "ranks: its samples/s are a shared card's)")
-    zero_launch_counts()
-    summary = sample_eval.evaluate(out / "mech", MECH_BATCH, device="cuda", seed=0,
-                                   out=tmp / "mech_eval", test_batches=1, test_data_root=root)
-    launches, want = launch_counts(), launches_of(2 * STEPS, MECH_FWD_LAUNCHES)
-    if launches != want:
-        raise AssertionError(f"19e: launches K1, K2, K4 {launches}, want {want}")
-    info = {}
-    for level, lv in summary["levels"].items():
-        ldir = tmp / "mech_eval" / level
-        missing = [n for n in ("residuals", "rel_CE_error", "rel_vf_error", "fm_error",
-                               "sample_statistics") if not (ldir / f"{n}.csv").exists()]
-        metrics = np.concatenate([lv[k] for k in ("res_b", "rel_CE", "rel_vf", "fm")])
-        if missing or lv["n"] != MECH_BATCH or not np.isfinite(metrics).all():
-            raise AssertionError(f"19e {level}: missing {missing}, n {lv['n']}, finite "
-                                 f"{np.isfinite(metrics).all()}")
-        info[level] = (f"rel_CE median {lv['rel_CE_median']:.4e}, residual median "
-                       f"{lv['residual_median']:.4e}, fallbacks {lv['n_solve_fallback']}, "
-                       f"{lv['samples_per_s']:.2f} samples/s ({MECH_BATCH} x {STEPS} steps), "
-                       f"PCG {lv['solve_seconds']:.2f} s ({lv['solve_iterations']} iterations)")
-        print(f"  {level}: {info[level]}", flush=True)
-    done(ph, launches="/".join(str(row) for row in launches))
     return got[0], got[1], steps_per_s
 
 
-def toy_phase(tmp: Path, dev, smi: str) -> dict:
-    """Phase 20, the toy study: (a) the model's forward, then one fp32 loss
-    and its gradients at B=128 for each prediction mode and x0 estimate,
-    card vs CPU (9b's rules); (b) the ``train_toy`` CLI at full width on the
-    card for TOY_EPOCHS epochs with its 1000-sample pass: steps/s, samples/s,
-    the sample residual, every logged loss finite, and JAX's files.
-    Returns the CLI's rates."""
+def toy_card_vs_cpu(tmp: Path) -> None:
+    """Phase 20a (the card lane runs it): the toy model's forward, then one
+    fp32 loss and its gradients at B=128 for each prediction mode and x0
+    estimate, card vs CPU (9b's rules)."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import train_toy
@@ -2113,6 +2426,7 @@ def toy_phase(tmp: Path, dev, smi: str) -> dict:
     from physicsinformeddiffusionmodels_tpu_torch.models.toy import ConditionalModel
     from physicsinformeddiffusionmodels_tpu_torch.physics.toy import sample_hypersphere
 
+    dev = torch.device("cuda")
     ph = phase("20a toy model and loss, card vs CPU")
     rng = np.random.default_rng(20)
     x0 = torch.from_numpy(sample_hypersphere(rng, 128).astype(np.float32))
@@ -2136,10 +2450,19 @@ def toy_phase(tmp: Path, dev, smi: str) -> dict:
         worst[f"{mode}/{estimation}"] = f"{held['loss_rel']}, {held['worst_grad_rel']}"
     done(ph, forward_max_abs_err=f"{fwd_err:.3e}", loss_rel_and_worst_grad_rel=json.dumps(worst))
 
+
+def toy_phase(tmp: Path, dev, smi: str) -> dict:
+    """Phase 20b, the toy study (20a: ``toy_card_vs_cpu``): the
+    ``train_toy`` CLI at full width on the card for TOY_EPOCHS epochs with
+    its 1000-sample pass: steps/s, samples/s, the sample residual, every
+    logged loss finite, and JAX's files. Returns the CLI's rates."""
+    from physicsinformeddiffusionmodels_tpu_torch import train_toy
+
     ph = phase("20b train_toy CLI at full width (main path)")
     out_dir = tmp / "toy"
-    res = train_toy.main(["--epochs", str(TOY_EPOCHS), "--name", "smoke",
-                          "--output-dir", str(out_dir), "--device", dev.type])
+    with timed("20b"):
+        res = train_toy.main(["--epochs", str(TOY_EPOCHS), "--name", "smoke",
+                              "--output-dir", str(out_dir), "--device", dev.type])
     run = out_dir / "smoke"
     with open(run / "metrics.csv", newline="") as fh:
         rows = list(csv.DictReader(fh))
@@ -2160,36 +2483,32 @@ def toy_phase(tmp: Path, dev, smi: str) -> dict:
     return rates
 
 
-def simp_phase(tmp: Path, dev, smi: str) -> dict:
-    """Phase 21, the batched SIMP (``data/mechanics_generator_gpu.py``): (a)
-    card vs CPU at P=16, 3 iterations; (b) 12 iterations against the host
-    SIMP; (c) one full-width batch (SIMP_FULL) through
-    ``generate_mechanics_sets``' set writer on the card, the final exact
-    solves in spawned workers, timed; the set's layout and its fields'
-    residual. Returns its seconds a batch."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def _simp_draw(fem, families, rng):
+    """The fixed dofs and loads of one scenario of each of ``families``."""
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
+        SCENARIO_FAMILIES)
 
+    fixed, f = np.zeros((len(families), fem.neq), bool), np.zeros((len(families), fem.neq))
+    for b, fam in enumerate(families):
+        fixed[b], f[b] = SCENARIO_FAMILIES[fam](fem, rng)
+    return fixed, f
+
+
+def simp_checks(tmp: Path) -> None:
+    """Phases 21a and 21b (the card lane runs them): the batched SIMP card
+    vs CPU at P=16, 3 iterations, and 12 iterations against the host
+    SIMP."""
     import torch
 
-    from physicsinformeddiffusionmodels_tpu_torch import generate_mechanics_sets as tsets
-
     from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
-        SCENARIO_FAMILIES, MechanicsFEM, simp_topopt)
+        MechanicsFEM, simp_topopt)
     from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
         GpuSimpGenerator)
-    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
-        MechanicsResidual, split_mechanics_batch)
 
-    def draw(fem, families, rng):
-        fixed, f = np.zeros((len(families), fem.neq), bool), np.zeros((len(families), fem.neq))
-        for b, fam in enumerate(families):
-            fixed[b], f[b] = SCENARIO_FAMILIES[fam](fem, rng)
-        return fixed, f
-
+    dev = torch.device("cuda")
     ph = phase("21a batched SIMP, card vs CPU (P=16, 3 iterations)")
     fem16 = MechanicsFEM(16)
-    fixed, f = draw(fem16, SIMP_FAMILIES, np.random.default_rng(21))
+    fixed, f = _simp_draw(fem16, SIMP_FAMILIES, np.random.default_rng(21))
     vf = np.array(SIMP_VF)
     out = {}
     for d in (dev, "cpu"):
@@ -2224,6 +2543,25 @@ def simp_phase(tmp: Path, dev, smi: str) -> dict:
          mean_abs_diff_max=f"{max(s[1] for s in stats):.3e}",
          binary_agreement_min=f"{min(s[2] for s in stats):.4f}")
 
+
+def simp_phase(tmp: Path, dev, smi: str) -> dict:
+    """Phase 21c, the batched SIMP (``data/mechanics_generator_gpu.py``;
+    21a-b: ``simp_checks``): one full-width batch (SIMP_FULL) through
+    ``generate_mechanics_sets``' set writer on the card, the final exact
+    solves in spawned workers, timed; the set's layout and its fields'
+    residual. Returns its seconds a batch."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import generate_mechanics_sets as tsets
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import MechanicsFEM
+    from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator_gpu import (
+        GpuSimpGenerator)
+    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
+        MechanicsResidual, split_mechanics_batch)
+
     c = SIMP_FULL
     ph = phase(f"21c batched SIMP, one full-width batch (B={c['batch']}, P={c['P']}, "
                f"{c['n_iter']} iterations) through generate_mechanics_sets' set writer")
@@ -2233,11 +2571,12 @@ def simp_phase(tmp: Path, dev, smi: str) -> dict:
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
         pool.submit(int, 0).result()  # the workers are up before the clock starts
-        t0 = time.perf_counter()
-        tsets.generate_set(MechanicsFEM(c["P"]), out, c["batch"], tsets.IN_DIST_FAMILIES,
-                           tsets.IN_DIST_VF, np.random.default_rng((0, 0)), n_iter=c["n_iter"],
-                           pool=pool, gen=gen, batch=c["batch"])
-        seconds = time.perf_counter() - t0
+        with timed("21c"):
+            t0 = time.perf_counter()
+            tsets.generate_set(MechanicsFEM(c["P"]), out, c["batch"], tsets.IN_DIST_FAMILIES,
+                               tsets.IN_DIST_VF, np.random.default_rng((0, 0)),
+                               n_iter=c["n_iter"], pool=pool, gen=gen, batch=c["batch"])
+            seconds = time.perf_counter() - t0
     files = sorted(out.glob("*.npy"), key=lambda q: int(q.stem))
     if [q.stem for q in files] != [str(i) for i in range(c["batch"])] or len(
             (out / "scenarios.csv").read_text().splitlines()) != c["batch"] + 1:
@@ -2260,20 +2599,43 @@ def simp_phase(tmp: Path, dev, smi: str) -> dict:
     return {"simp s a batch": seconds}
 
 
-def unet_options_phase(tmp: Path, dev, smi: str) -> tuple:
-    """Phase 22: ``build_model`` of a periodic run (circular padding), with
-    and without self-conditioning, UNet(dim=32) at 64x64 and
-    B=OPTIONS_BATCH, seeded weights, on 9a's fields: the forward (with an
-    x_self_cond) card vs CPU, then one fp32 train step on the periodic Darcy
-    residual card vs CPU (9b's rules), launch counts zeroed before and read
-    after each. Returns the K1 and K2 launches of the step runs."""
+def _options_cfg(sc: bool):
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+
+    return RunConfig(bcs="periodic", self_condition=sc, compute_dtype="float32")
+
+
+def _options_model(sc: bool):
+    """Phase 22's seeded UNet of a periodic run, on the CPU."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
+
+    torch.manual_seed(22)
+    return build_model(_options_cfg(sc)).train()
+
+
+def _frames_model():
+    """Phase 22's seeded UNet(dim=32, multi_frame=True), on the CPU."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(122)
+    return UNet(dim=32, channels=2, multi_frame=True)
+
+
+def ref_22(tmp: Path) -> dict:
+    """The CPU half of phase 22 (computed by the CPU-reference worker): a
+    batch of 9a's fields in ``tmp``, t, noise, x and x_self_cond drawn from
+    seed 22; for the periodic UNet without and with self-conditioning its
+    forward and one fp32 step on the periodic Darcy residual; then x and t
+    of the frame axis drawn from seed 122 and the frame UNet's forward."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch import train
-    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
     from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
     from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
-    from physicsinformeddiffusionmodels_tpu_torch.models.unet import build_model
 
     data = load_darcy_dataset(tmp / "train").stacked()
     rng = np.random.default_rng(22)
@@ -2283,51 +2645,91 @@ def unet_options_phase(tmp: Path, dev, smi: str) -> tuple:
     noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
     self_cond = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    out = {"inputs": (batch, t, noise, x, self_cond)}
+    for sc in (False, True):
+        cfg, model = _options_cfg(sc), _options_model(sc)
+        with torch.no_grad():
+            y = model(x, t, **({"x_self_cond": self_cond} if sc else {}))
+        loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                            train.make_physics(cfg, "cpu"), cfg)
+        loss, _ = loss_fn(model, batch, t, noise)
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        out[sc] = {"y": y, "loss": loss.detach(), "grads": list(grads)}
+    rng = np.random.default_rng(122)
+    xf = torch.from_numpy(rng.standard_normal((FRAMES_BATCH, FRAMES, 64, 64, 2))
+                          .astype(np.float32))
+    tf = torch.from_numpy(rng.integers(0, 100, FRAMES_BATCH))
+    with torch.no_grad():
+        out["frames"] = {"inputs": (xf, tf), "y": _frames_model()(xf, tf)}
+    return out
+
+
+def unet_options_phase(dev, smi: str, refs: "CpuRefs") -> tuple:
+    """Phase 22: ``build_model`` of a periodic run (circular padding), with
+    and without self-conditioning, UNet(dim=32) at 64x64 and
+    B=OPTIONS_BATCH, seeded weights, on 9a's fields: the forward (with an
+    x_self_cond) card vs CPU, then one fp32 train step on the periodic Darcy
+    residual card vs CPU (9b's rules), launch counts zeroed before and read
+    after each; then the frame axis' forward card vs CPU. The inputs and the
+    CPU half are ``ref_22``'s (``refs``). Returns the K1 and K2 launches of
+    the step runs."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    ref = refs.get("22")
+    batch, t, noise, x, self_cond = (a.to(dev) for a in ref["inputs"])
     step_launches = [[0] * 4, [0] * 4]
     for sc in (False, True):
         name = "circular" + (" + self-conditioning" if sc else "")
         ph = phase(f"22 UNet options: {name}, card vs CPU")
-        cfg = RunConfig(bcs="periodic", self_condition=sc, compute_dtype="float32")
-        torch.manual_seed(22)
-        model_cpu = build_model(cfg).train()
-        model = build_model(cfg).to(dev).train()
-        model.load_state_dict(model_cpu.state_dict())
-        kw = (lambda d: {"x_self_cond": self_cond.to(d)}) if sc else (lambda d: {})
+        cfg, model = _options_cfg(sc), _options_model(sc).to(dev)
         zero_launch_counts()
         with torch.no_grad():
-            y = model(x.to(dev), t.to(dev), **kw(dev))
+            y = model(x, t, **({"x_self_cond": self_cond} if sc else {}))
             torch.cuda.synchronize()
             fwd_counts = launch_counts()
-            y_cpu = model_cpu(x, t, **kw("cpu"))
-        err = (y.cpu() - y_cpu).abs().max().item()
+        err = (y.cpu() - ref[sc]["y"]).abs().max().item()
         if fwd_counts != OPTIONS_FWD_LAUNCHES or not torch.isfinite(y).all() or err > 5e-4:
             raise AssertionError(f"22 {name}: forward card vs CPU max |diff| {err:.3e}, "
                                  f"launches {fwd_counts} (want {OPTIONS_FWD_LAUNCHES})")
-        sched = create_schedule(cfg.diff_steps)
-        out = {}
         zero_launch_counts()
-        for d, args in ((dev, (batch.to(dev), t.to(dev), noise.to(dev))),
-                        ("cpu", (batch, t, noise))):
-            m = model if d == dev else model_cpu
-            loss_fn = train.build_darcy_loss_fn(sched, train.make_physics(cfg, d), cfg)
-            loss, _ = loss_fn(m, *args)
-            out[d] = loss, torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
-            if d == dev:
-                torch.cuda.synchronize()
-                counts = launch_counts()
+        loss_fn = train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                            train.make_physics(cfg, dev), cfg)
+        loss, _ = loss_fn(model, batch, t, noise)
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
         want = ((8, 0, 8, 0), (38, 0, 38, 0), (0, 0, 0, 0))
         if counts != want:
             raise AssertionError(f"22 {name}: step launches {counts} (want {want})")
         for k in range(2):
             step_launches[k] = [a + c for a, c in zip(step_launches[k], counts[k])]
         done(ph, forward_max_abs_err=f"{err:.3e}",
-             **hold_fp32_step(model, *out[dev], *out["cpu"]), launches=counts[:2])
-        del model, model_cpu
+             **hold_fp32_step(model, loss, grads, ref[sc]["loss"], ref[sc]["grads"]),
+             launches=counts[:2])
+        del model
+
+    ph = phase(f"22 UNet frame axis: [{FRAMES_BATCH}, {FRAMES}, 64, 64, 2], card vs CPU")
+    (xf, tf), y_cpu = ref["frames"]["inputs"], ref["frames"]["y"]
+    model = _frames_model().to(dev)
+    zero_launch_counts()
+    with torch.no_grad():
+        y = model(xf.to(dev), tf.to(dev))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    err = (y.cpu() - y_cpu).abs().max().item()
+    # the frames fold into the batch of each K1 and K2 call: one launch a call
+    if (counts != OPTIONS_FWD_LAUNCHES or y.shape != xf.shape or not torch.isfinite(y).all()
+            or err > 5e-4):
+        raise AssertionError(f"22 frames: forward card vs CPU max |diff| {err:.3e}, shape "
+                             f"{tuple(y.shape)}, launches {counts} (want {OPTIONS_FWD_LAUNCHES})")
+    done(ph, forward_max_abs_err=f"{err:.3e}", max_abs_out=f"{y_cpu.abs().max().item():.3e}",
+         k1_k2_launches=f"{counts[0][0]}/{counts[1][0]}", cpu_s=f"{ref['seconds']:.2f}")
     print(f"  {smi}", flush=True)
     return tuple(tuple(r) for r in step_launches)
 
-
-# --- phase 23: the parallel layer --------------------------------------------
 
 def _par_darcy_inputs(b: int, dev) -> tuple:
     """A seeded batch for the Darcy UNet: fields, t and noise (an equivalence
@@ -2705,9 +3107,9 @@ def parallel_timing(rank: int, kept: dict) -> dict:
     return out
 
 
-def _wait_for(path: Path) -> None:
-    """Block until the main process writes ``path`` (PAR_JOIN_S at most)."""
-    deadline = time.monotonic() + PAR_JOIN_S
+def _wait_for(path: Path, limit: float = None) -> None:
+    """Block until ``path`` is written (PAR_JOIN_S at most, or ``limit``)."""
+    deadline = time.monotonic() + (PAR_JOIN_S if limit is None else limit)
     while not path.exists():
         if time.monotonic() > deadline:
             raise TimeoutError(f"no {path.name} from the main process")
@@ -2732,9 +3134,8 @@ def parallel_worker(rank: int, work: Path) -> int:
         from physicsinformeddiffusionmodels_tpu_torch.ops import _build
         from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
 
-        # the ranks' checks run beside the main process's phases: they
-        # yield it the host's CPU, as the background data jobs do
-        os.nice(10)
+        # the ranks' checks run in the window after 19d's timing, where they
+        # and the card lane set its length: no nice, one torch thread each
         torch.set_num_threads(1)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -2742,6 +3143,7 @@ def parallel_worker(rank: int, work: Path) -> int:
         dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
                                 world_size=PAR_WORLD,
                                 timeout=datetime.timedelta(seconds=PAR_COLLECTIVE_S))
+        (work / f"joined_{rank}").write_text(repr(time.time()))
         # the main process builds the kernels meanwhile: load them after
         # its word, never build them here
         _wait_for(work / "checks")
@@ -2774,17 +3176,26 @@ class ParallelRanks:
     def __init__(self, tmp: Path):
         self.work = tmp / "parallel"
         self.work.mkdir(parents=True, exist_ok=True)
-        self.procs = []
+        self.procs, self.t0 = [], time.time()
         for r in range(PAR_WORLD):
             log = open(self.work / f"rank_{r}.log", "w")
+            # a session of its own: until its checks, BACKGROUND stops it
+            # while a phase times
             self.procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
                  "--parallel-dir", str(self.work)], cwd=ROOT, stdout=log,
-                stderr=subprocess.STDOUT))
+                stderr=subprocess.STDOUT, start_new_session=True))
+            BACKGROUND.add(self.procs[-1].pid)
             log.close()
 
     def start_checks(self) -> None:
+        for p in self.procs:
+            BACKGROUND.discard(p.pid)
         (self.work / "checks").touch()
+        for r in range(PAR_WORLD):  # each rank's seconds from its start to its group joined
+            joined = self.work / f"joined_{r}"
+            SERIAL["rank_startup"][str(r)] = (float(joined.read_text()) - self.t0
+                                              if joined.exists() else None)
 
     def _failed(self) -> str:
         errors = sorted(self.work.glob("error_*.txt"))
@@ -2940,12 +3351,194 @@ def corrected_sampling_phase(dev, plain_summary: dict) -> None:
           f"corrected {json.dumps(medians)}", flush=True)
 
 
+# the CPU halves of the card vs CPU checks, in the order the window reads
+# them, and the set (of DataJobs) each needs
+CPU_REFS = {"22": ("train", ref_22), "9b": ("train", ref_fp32_step), "13a": ("train", ref_13a),
+            "15e": ("train", functools.partial(ref_fp32_step, cm=True)),
+            "16b": ("train", functools.partial(ref_fp32_step, run=SAMPLE_RUN,
+                                               batch_size=DDIM_BATCH)),
+            "17c": ("train", functools.partial(ref_fp32_step, run=GUIDED_RUN,
+                                               batch_size=TRAIN_BATCH)),
+            "19c": ("mechanics", ref_19c)}
+
+
+def cpu_refs_worker(tmp: Path) -> int:
+    """The CPU-reference worker (this script with ``--cpu-refs``; the card
+    hidden from it): computes each of CPU_REFS when its set is made in
+    ``tmp``, into ``tmp/refs/<name>.pt`` with the seconds it took.
+    Returns the exit code; a failure writes its traceback to
+    ``refs/error.txt``."""
+    import traceback
+
+    import torch
+
+    work = tmp / "refs"
+    try:
+        for name, (data, fn) in CPU_REFS.items():
+            _wait_for(tmp / f"{data}.done", DATA_WAIT_S)
+            t0 = time.perf_counter()
+            out = fn(tmp)
+            out["seconds"] = time.perf_counter() - t0
+            torch.save(out, work / f"{name}.tmp")
+            os.replace(work / f"{name}.tmp", work / f"{name}.pt")
+        return 0
+    except Exception:  # the main process reads the traceback and fails the check
+        (work / "error.txt").write_text(traceback.format_exc())
+        return 1
+
+
+class CpuRefs:
+    """The CPU-reference worker, started beside the build in a session of
+    its own (BACKGROUND stops it while a phase times), niced, with no card:
+    ``get(name)`` waits for its entry of CPU_REFS (raising if the worker
+    failed) and loads it; ``stop()`` kills it."""
+
+    def __init__(self, tmp: Path):
+        (tmp / "refs").mkdir(parents=True, exist_ok=True)
+        self.tmp, self.waited = tmp, {}
+        nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+        self.log = open(tmp / "refs" / "worker.log", "w")
+        self.proc = subprocess.Popen(
+            [*nice, sys.executable, str(Path(__file__).resolve()), "--cpu-refs", str(tmp)],
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT, start_new_session=True,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        BACKGROUND.add(self.proc.pid)
+
+    def get(self, name: str) -> dict:
+        import torch
+
+        path, t0 = self.tmp / "refs" / f"{name}.pt", time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                error = self.tmp / "refs" / "error.txt"
+                raise RuntimeError(f"the CPU-reference worker exited {self.proc.returncode}:\n"
+                                   + (error.read_text() if error.exists() else ""))
+            time.sleep(0.1)
+        self.waited[name] = time.perf_counter() - t0
+        out = torch.load(path, weights_only=False)
+        SERIAL["cpu_references"][name] = out["seconds"]
+        return out
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        BACKGROUND.discard(self.proc.pid)
+        self.log.close()
+
+
+def checkpoint_forward(tmp: Path) -> None:
+    """Phase 5 (the card lane runs it): one fp32 UNet forward (B=8) of the
+    committed 300k Darcy checkpoint on the card (kernels) against the same
+    forward on the CPU (plain versions)."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import sample_eval
+
+    dev = torch.device("cuda")
+    ph = phase("5 checkpoint forward")
+    _, model, step = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
+    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 8))
+    with torch.no_grad():
+        y = model(x.to(dev), t.to(dev)).cpu()
+        y_ref = model_cpu(x, t)
+    err = (y - y_ref).abs().max().item()
+    # README "Parity": the Flax transplant tolerance; fp32 on both devices
+    if y.shape != (8, 64, 64, 2) or not torch.isfinite(y).all() or err > 5e-4:
+        raise AssertionError(f"checkpoint forward: card vs CPU max |diff| {err:.3e}")
+    del model, model_cpu
+    done(ph, step=step, max_abs_err=f"{err:.3e}")
+
+
+# the checks that time nothing and need no state of the main process, run
+# in order by the card lane beside the main process's own window
+LANE_CHECKS = {"18a": graph_bit_equality, "9f": training_cli_fp32, "13d": training_cli_bf16,
+               "20a": toy_card_vs_cpu, "21ab": simp_checks, "5": checkpoint_forward}
+
+
+def lane_worker(tmp: Path) -> int:
+    """The card lane (this script with ``--lane``): waits for the main
+    process's ``lane/go`` (written after 19d's timing), then runs
+    LANE_CHECKS on the sets and runs in ``tmp``. Returns the exit code; a
+    failure writes its traceback to ``lane/error.txt``."""
+    import traceback
+
+    import torch
+
+    work = tmp / "lane"
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is False")
+        from physicsinformeddiffusionmodels_tpu_torch.ops import _build
+        from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
+
+        set_fp32_exact()
+        _wait_for(work / "go")
+        _build.library()  # built by the main process before its word
+        for check in LANE_CHECKS.values():
+            check(tmp)
+        return 0
+    except Exception:  # the main process reads the traceback and fails the run
+        (work / "error.txt").write_text(traceback.format_exc())
+        return 1
+
+
+class CardLane:
+    """The card lane's process (this script with ``--lane``), started
+    after the build, where it imports and waits: ``start()`` lets it run
+    LANE_CHECKS, ``finish()`` joins it (PAR_JOIN_S at most), prints its
+    phase lines and raises if it failed; ``stop()`` kills it."""
+
+    def __init__(self, tmp: Path):
+        self.work = tmp / "lane"
+        self.work.mkdir(parents=True, exist_ok=True)
+        with open(self.work / "lane.log", "w") as log:
+            # a session of its own: until its word, BACKGROUND stops it while
+            # a phase times
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--lane", str(tmp)], cwd=ROOT,
+                stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        BACKGROUND.add(self.proc.pid)
+
+    def start(self) -> None:
+        BACKGROUND.discard(self.proc.pid)
+        (self.work / "go").touch()
+
+    def finish(self) -> None:
+        try:
+            self.proc.wait(timeout=PAR_JOIN_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+        log = (self.work / "lane.log").read_text()
+        for line in log.splitlines():
+            if line.startswith(("[", "  ")):
+                print(line, flush=True)
+        if self.proc.returncode != 0:
+            error = self.work / "error.txt"
+            raise RuntimeError(f"the card lane exited {self.proc.returncode}:\n"
+                               + (error.read_text() if error.exists() else log[-3000:]))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def main() -> int:
     import torch
 
     if "--parallel-rank" in sys.argv:  # a rank of phase 23, started by ParallelRanks
         return parallel_worker(int(sys.argv[sys.argv.index("--parallel-rank") + 1]),
                                Path(sys.argv[sys.argv.index("--parallel-dir") + 1]))
+    if "--cpu-refs" in sys.argv:  # the CPU-reference worker, started by CpuRefs
+        return cpu_refs_worker(Path(sys.argv[sys.argv.index("--cpu-refs") + 1]))
+    if "--lane" in sys.argv:  # the card lane, started by CardLane
+        return lane_worker(Path(sys.argv[sys.argv.index("--lane") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2959,8 +3552,10 @@ def main() -> int:
         group_norm_film_silu, group_norm_film_silu_plain)
     from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
         linear_attention_block, linear_attention_block_plain)
+    from physicsinformeddiffusionmodels_tpu_torch.utils import timing
     from physicsinformeddiffusionmodels_tpu_torch.utils.platform import set_fp32_exact
 
+    timing.QUIET = BACKGROUND.quiet  # no timed replay shares the host with background work
     t_start = time.perf_counter()
     dev = torch.device("cuda")
 
@@ -2973,12 +3568,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     done(ph)
 
-    # phase 23's processes start now, join their group during the build
-    # (which takes the CPU and times nothing) and wait; they run on the card
-    # only after 19d's timing, the last of the main paths'
     data_tmp = tempfile.TemporaryDirectory(prefix="pidm_smoke_")
-    par = ParallelRanks(Path(data_tmp.name))
-    atexit.register(par.stop)
+    # the sets of 9a and 19a, made in the background from now on (the build's
+    # nvcc calls keep the CPU first: the jobs are niced), and the worker that
+    # computes the CPU halves of the card vs CPU checks from them; both
+    # stopped at exit either way, and stopped while a phase times
+    jobs = DataJobs(Path(data_tmp.name))
+    atexit.register(jobs.stop)
+    refs = CpuRefs(Path(data_tmp.name))
+    atexit.register(refs.stop)
 
     ph = phase("2 build")
     lib_path, log, build_s = _build.build()
@@ -2988,10 +3586,12 @@ def main() -> int:
             print("  " + line.strip())
     done(ph, nvcc_seconds=f"{build_s:.2f}", library=lib_path.name)
 
-    # the sets of 9a and 19a, made in the background while the card runs 3-8
-    # (after the build, whose nvcc takes the CPU); stopped at exit either way
-    jobs = DataJobs(Path(data_tmp.name))
-    atexit.register(jobs.stop)
+    # phase 23's ranks and the card lane start now: they import and wait
+    # (stopped while a phase times) until their word after 19d's timing
+    par = ParallelRanks(Path(data_tmp.name))
+    atexit.register(par.stop)
+    lane = CardLane(Path(data_tmp.name))
+    atexit.register(lane.stop)
 
     gen = torch.Generator().manual_seed(0)
 
@@ -3033,26 +3633,10 @@ def main() -> int:
     done(ph, max_abs_err=f"{k2['max_abs_err']:.3e}",
          bf16_max_abs_err=f"{k2f16['max_abs_err']:.3e}")
 
-    ph = phase("5 checkpoint forward")
-    _, model, step = sample_eval.load_run(RUN, compute_dtype="float32", device=dev)
-    _, model_cpu, _ = sample_eval.load_run(RUN, compute_dtype="float32", device="cpu")
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, 100, 8))
-    with torch.no_grad():
-        y = model(x.to(dev), t.to(dev)).cpu()
-        y_ref = model_cpu(x, t)
-    err = (y - y_ref).abs().max().item()
-    # README "Parity": the Flax transplant tolerance; fp32 on both devices
-    if y.shape != (8, 64, 64, 2) or not torch.isfinite(y).all() or err > 5e-4:
-        raise AssertionError(f"checkpoint forward: card vs CPU max |diff| {err:.3e}")
-    del model, model_cpu
-    done(ph, step=step, max_abs_err=f"{err:.3e}")
-
     ph = phase("6 sampling path")
     linear_attention_block.launches = 0
     group_norm_film_silu.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, timed("6"):
         summary = sample_eval.evaluate(RUN, SAMPLES, "float32", "cuda", seed=0, out=tmp)
     launches = (linear_attention_block.launches, group_norm_film_silu.launches)
     if launches != (8 * STEPS, 38 * STEPS):
@@ -3143,51 +3727,55 @@ def main() -> int:
     later = []
     with data_tmp as tmp:
         (k1["launches"], k1b["launches"], k2["launches"], k2b["launches"]), steps_per_s["9d"] = \
-            train_phase(Path(tmp), dev, smi, jobs, later)
+            train_phase(Path(tmp), dev, smi, jobs, later, refs)
         par.check()
 
         (k1f16["launches"], k1b16["launches"], k2f16["launches"], k2b16["launches"],
-         steps_per_s["13c"]) = bf16_train_phase(Path(tmp), dev, smi)
+         steps_per_s["13c"]) = bf16_train_phase(Path(tmp), dev, smi, later, refs)
         par.check()
 
         fp32_counts, bf16_counts = cm_phase(Path(tmp), dev, smi, summary, steps_per_s,
-                                             later)
+                                             later, refs)
         k4["launches"], k4b["launches"] = fp32_counts[0], fp32_counts[2]
         k4["bf16_launches"], k4b["bf16_launches"] = bf16_counts[1], bf16_counts[3]
 
-        steps_per_s["16c"] = ddim_phase(Path(tmp), dev, smi, later)
-        steps_per_s["17d"] = guidance_phase(Path(tmp), dev, smi, later)
+        steps_per_s["16c"] = ddim_phase(Path(tmp), dev, smi, later, refs)
+        steps_per_s["17d"] = guidance_phase(Path(tmp), dev, smi, later, refs)
         graph_phase(Path(tmp), dev, smi, steps_per_s)
 
         cli23 = {}
 
         def card_shared():
-            # after 19d's timing: phase 23's ranks run their checks and the
-            # torchrun CLI its steps beside 19e, 22, the later checks and 11,
-            # which time nothing but 19e's and 11's samples/s (marked so)
+            # after 19d's timing: phase 23's ranks run their checks, the card
+            # lane LANE_CHECKS (18a, 9f, 13d) and the torchrun CLI its steps
+            # beside 19e, 22, 11 and the later checks, which time nothing but
+            # 19e's and 11's samples/s (marked so)
             par.start_checks()
+            lane.start()
             cli23.update(torchrun_cli_start(Path(tmp)))
 
         mech_k1, mech_k2, mech_sps = mechanics_phase(Path(tmp), dev, smi, k1_args, k2_args,
-                                                     jobs, card_shared)
+                                                     jobs, card_shared, later, refs)
         steps_per_s.update(mech_sps)
+        mech_sweep(Path(tmp))
         par.check()
         for entry, counts in ((k1f16, mech_k1[1]), (k1b16, mech_k1[3]), (k2f16, mech_k2[1]),
                               (k2b16, mech_k2[3])):
             entry["mechanics_launches"] = counts
-        opt_k1, opt_k2 = unet_options_phase(Path(tmp), dev, smi)
+        opt_k1, opt_k2 = unet_options_phase(dev, smi, refs)
         for entry, counts in ((k1, opt_k1[0]), (k1b, opt_k1[2]), (k2, opt_k2[0]),
                               (k2b, opt_k2[2])):
             entry["unet_options_launches"] = counts
         print("  training steps/s (main paths; graph: 18b): " + json.dumps(
             {k: f"{v:.3f}" for k, v in steps_per_s.items()}), flush=True)
-        for check in later:
-            check()
 
         ph = phase("11 corrected sampling (beside phase 23's ranks: its samples/s are a "
                    "shared card's)")
         corrected_sampling_phase(dev, summary)
         done(ph)
+        for check in later:
+            check()
+        lane.finish()  # its phases' lines: 18a, 9f, 13d
 
         ph = phase("23 the parallel layer: the ranks' checks and timed turns, the torchrun CLI")
         # the timed turns start when the CLI has ended: on a quiet card
@@ -3207,6 +3795,10 @@ def main() -> int:
                               (k2b16, tp[1][3])):
             entry["parallel_launches"] = counts
     print(f"[total] {time.perf_counter() - t_start:.2f} s", flush=True)
+    SERIAL["waited_for_cpu_references"] = refs.waited
+    print("[serial CPU work, s] " + json.dumps(
+        {kind: {k: round(v, 2) if v is not None else None for k, v in d.items()}
+         for kind, d in SERIAL.items()}), flush=True)
 
     for entry, source, replaces in (
         (k1, "physicsinformeddiffusionmodels_tpu_torch/csrc/linear_attention.cu",

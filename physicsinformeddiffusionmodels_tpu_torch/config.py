@@ -1,9 +1,9 @@
 """Run configuration, field for field the JAX package's ``RunConfig``.
 
 The field names match ``physicsinformeddiffusionmodels_tpu/config.py`` so
-that every ``results/*/portable/config.json`` loads unchanged. Fields that
-select mesh or mechanics behaviour are carried so that such files load;
-the port refuses them where it does not implement them yet.
+that every ``results/*/portable/config.json`` loads unchanged, and a
+reference-format ``model.yaml`` configures a run (``from_model_yaml``).
+``use_double`` is carried only so that such files load: True is refused.
 """
 
 from __future__ import annotations
@@ -135,6 +135,24 @@ class RunConfig:
     def from_json(cls, text: str) -> "RunConfig":
         return cls(**json.loads(text))
 
+    def save(self, path) -> None:
+        Path(path).write_text(self.to_json())
+
     @classmethod
     def load(cls, path) -> "RunConfig":
         return cls.from_json(Path(path).read_text())
+
+    @classmethod
+    def from_model_yaml(cls, path, **overrides) -> "RunConfig":
+        """A run configured by a reference-format ``model.yaml``: its keys
+        are field names here (an unknown key raises), ``overrides`` win.
+        Needs PyYAML, imported here only."""
+        import yaml
+
+        raw = yaml.safe_load(Path(path).read_text())
+        unknown = set(raw) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown model.yaml keys: {sorted(unknown)}")
+        if raw.get("correction_mode") is not None:
+            raw["correction_mode"] = str(raw["correction_mode"])
+        return cls(**{**raw, **overrides})

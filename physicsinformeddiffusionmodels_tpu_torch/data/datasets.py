@@ -109,6 +109,36 @@ def cycle_batches(dataset, batch_size: int, *, seed: int = 0):
         yield stacked[idx]
 
 
+def sample_images_with_squares(no_points: int, pixels_per_dim: int, dim: int,
+                               rng: np.random.Generator | None = None) -> np.ndarray:
+    """Debug images: one random solid square a quarter of the side wide in
+    each sample, the same in every channel; NHWC [N, P, P, dim] float32."""
+    rng = rng or np.random.default_rng(0)
+    size = pixels_per_dim // 4
+    images = np.zeros((no_points, pixels_per_dim, pixels_per_dim, dim), np.float32)
+    starts = rng.integers(0, pixels_per_dim - size, (no_points, 2))
+    for i, (x0, y0) in enumerate(starts):
+        images[i, x0:x0 + size, y0:y0 + size, :] = 1.0
+    return images
+
+
+class SquareImagesDataset:
+    """A shape-level smoke-test dataset of random squares, no physics."""
+
+    def __init__(self, no_points: int, pixels_per_dim: int, dim: int, seed: int = 0):
+        self.data = sample_images_with_squares(no_points, pixels_per_dim, dim,
+                                               np.random.default_rng(seed))
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.data[i]
+
+    def stacked(self) -> np.ndarray:
+        return self.data
+
+
 class Normalization:
     """Column-wise normalisation of [N, C] data with statistics of the
     constructor's data: 'min-max-1' ([0, 1] per column), 'global-min-max-1',

@@ -27,8 +27,11 @@ flag may also be switched on a built model.
 The port builds the Darcy study's ``UNet(dim=32, channels=2)`` and the
 mechanics study's ``UNet(dim=128, channels=10, out_dim=3,
 sigmoid_last_channel=True)``, whose last output channel (the density) goes
-through a sigmoid in the head's dtype, with frame attention at F == 1
-only. ``padding_mode='circular'`` (a run with periodic boundaries) wraps
+through a sigmoid in the head's dtype. An input with a frame axis, [B, F,
+H, W, C], runs its frames as consecutive images of one batch; the frame
+attention at F > 1 (``UNet(multi_frame=True)``, the Flax tree initialised
+at F > 1) is full attention along F with RoPE and a relative position
+bias, plain PyTorch. ``padding_mode='circular'`` (a run with periodic boundaries) wraps
 every spatial padding of the init conv, the Blocks, Downsample and
 Upsample (a circular pre-pad, a VALID transposed conv, then the crop), as
 JAX's ``_pad2d`` does; the conditioning branch's 3x3 conv stays
@@ -228,9 +231,14 @@ class Block(nn.Module):
         self.dtype = dtype
         self.circular = padding_mode == "circular"
 
-    def forward(self, x, scale_shift=None, cm: int = 0, tp: Optional[Mesh] = None):
+    def forward(self, x, scale_shift=None, cm: int = 0, tp: Optional[Mesh] = None,
+                frames: int = 1):
         """``tp``: column-parallel, the rank's C/tp output channels of the
-        whole x, K2 on its groups // tp groups, ``scale_shift`` the rank's."""
+        whole x, K2 on its groups // tp groups, ``scale_shift`` the rank's.
+        ``frames`` > 1: x holds a batch row's frames as consecutive images
+        ([B F, H, W, C]); the conv runs per frame and K2's statistics span
+        the row's frames, as JAX's Block folds frames into the batch for the
+        conv only."""
         scale, shift = scale_shift if scale_shift is not None else (None, None)
         names = ("weight", "bias", "gn_scale", "gn_bias")
         if tp is not None:
@@ -244,6 +252,9 @@ class Block(nn.Module):
             return conv_gn_film_silu_cm(x.to(self.dtype or x.dtype), w, b, g, beta, scale,
                                         shift, cm, self.groups)
         h = _conv(x, w, b, self.dtype, 1, 1, circular=self.circular)
+        if frames > 1:
+            return group_norm_film_silu(h.reshape(h.shape[0] // frames, -1, h.shape[-1]), g,
+                                        beta, scale, shift, groups=self.groups).reshape(h.shape)
         return group_norm_film_silu(h, g, beta, scale, shift, groups=self.groups)
 
 
@@ -264,10 +275,12 @@ class ResnetBlock(nn.Module):
             self.res_bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
 
-    def forward(self, x, time_emb=None, cm: int = 0, tp: Optional[Mesh] = None):
+    def forward(self, x, time_emb=None, cm: int = 0, tp: Optional[Mesh] = None,
+                frames: int = 1):
         """``tp``: column-parallel: x is the whole input, whose gradient the
         tp ranks' shares make up (``enter_partial``, or a ``gather`` with
-        ``partial``); returns the rank's C/tp output channels."""
+        ``partial``); returns the rank's C/tp output channels. ``frames``:
+        as in ``Block``."""
         scale_shift = None
         if time_emb is not None:
             emb = _dense(F.silu(time_emb), self.Dense_0, self.dtype).float()
@@ -275,7 +288,8 @@ class ResnetBlock(nn.Module):
             if tp is not None:
                 scale_shift = tuple(shard(e, -1, tp.tp_group) for e in scale_shift)
         if tp is None:
-            h = self.Block_1(self.Block_0(x, scale_shift, cm), cm=cm)
+            h = self.Block_1(self.Block_0(x, scale_shift, cm, frames=frames), cm=cm,
+                             frames=frames)
         else:
             h = self.Block_0(x, scale_shift, tp=tp)
             h = self.Block_1(gather(h, -1, tp.tp_group, partial=True), tp=tp)
@@ -360,38 +374,113 @@ class LinearAttentionBlock(nn.Module):
         return out if tp is None else shard(out, -1, tp.tp_group)
 
 
-class Attention(nn.Module):
-    """Full multi-head softmax attention over the token axis of [B, n, C]."""
+def _rope_rotate(x: torch.Tensor, positions: torch.Tensor, dim_head: int) -> torch.Tensor:
+    """Rotary position embedding on the last axis (JAX's ``_rope_rotate``,
+    the rotate-half convention), in float32."""
+    half = dim_head // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(0, half, dtype=torch.float32, device=x.device)
+                               / half))
+    angles = positions[:, None] * freqs[None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot, x[..., 2 * half:]], dim=-1) if dim_head > 2 * half else rot
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None):
+
+class Embed(nn.Module):
+    """A lookup table, Flax ``nn.Embed``'s ``embedding`` [num, features]."""
+
+    def __init__(self, num: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.randn(num, features) / math.sqrt(features))
+
+
+class RelativePositionBias(nn.Module):
+    """T5-bucketed relative position bias [heads, n, n] (JAX's
+    ``RelativePositionBias``)."""
+
+    def __init__(self, heads: int = 8, num_buckets: int = 32, max_distance: int = 128):
+        super().__init__()
+        self.Embed_0 = Embed(num_buckets, heads)
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+
+    def forward(self, n: int) -> torch.Tensor:
+        table = self.Embed_0.embedding
+        pos = torch.arange(n, device=table.device)
+        neg = pos[:, None] - pos[None, :]  # -(k - q)
+        nb = self.num_buckets // 2
+        max_exact = nb // 2
+        num = neg.abs()
+        large = max_exact + (torch.log(num.float() / max_exact + 1e-9)
+                             / math.log(self.max_distance / max_exact)
+                             * (nb - max_exact)).long()
+        buckets = (neg < 0).long() * nb + torch.where(num < max_exact, num,
+                                                      large.clamp(max=nb - 1))
+        return table[buckets].permute(2, 0, 1)
+
+
+class Attention(nn.Module):
+    """Full multi-head softmax attention over the token axis of [b, n, C],
+    with RoPE on q and k (``use_rope``) and an additive [heads, n, n] bias."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None,
+                 use_rope: bool = False):
         super().__init__()
         hidden = heads * dim_head
         self.Dense_0 = nn.Linear(dim, 3 * hidden, bias=False)
         self.Dense_1 = nn.Linear(hidden, dim, bias=False)
-        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.heads, self.dim_head, self.dtype, self.use_rope = heads, dim_head, dtype, use_rope
 
-    def forward(self, x):
+    def forward(self, x, pos_bias: Optional[torch.Tensor] = None):
         b, n, _ = x.shape
         qkv = _dense(x, self.Dense_0, self.dtype).reshape(b, n, 3, self.heads, self.dim_head)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))  # [b, heads, n, d]
+        if self.use_rope:
+            pos = torch.arange(n, dtype=torch.float32, device=x.device)
+            q, k = _rope_rotate(q, pos, self.dim_head), _rope_rotate(k, pos, self.dim_head)
         sim = (q * self.dim_head**-0.5) @ k.transpose(-1, -2)
+        if pos_bias is not None:
+            sim = sim + pos_bias
         attn = (sim - sim.amax(dim=-1, keepdim=True)).softmax(dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        out = (attn @ v.to(attn.dtype)).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         return _dense(out, self.Dense_1, self.dtype)
 
 
 class FrameAttention(nn.Module):
-    """Attention along a frame axis of length 1: softmax over one key is 1,
-    so the block is the per-token map x (W_v W_out)."""
+    """Attention along the frame axis, per pixel. Its parameters follow
+    the F that the Flax tree was initialised at: at F == 1 (``multi_frame``
+    False) ``to_qkv_kernel`` and ``to_out_kernel``, and softmax over one key
+    is 1, so the block is the per-token map x (W_v W_out); at F > 1
+    ``RelativePositionBias_0`` (32 buckets, max distance 32) and
+    ``Attention_0`` (full attention with RoPE), plain PyTorch as JAX's is
+    plain XLA."""
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=None,
+                 multi_frame: bool = False):
         super().__init__()
         self.hidden = heads * dim_head
-        self.to_qkv_kernel = _lecun(dim, 3 * self.hidden)
-        self.to_out_kernel = _lecun(self.hidden, dim)
+        self.multi_frame = multi_frame
+        if multi_frame:
+            self.RelativePositionBias_0 = RelativePositionBias(heads, max_distance=32)
+            self.Attention_0 = Attention(dim, heads, dim_head, dtype, use_rope=True)
+        else:
+            self.to_qkv_kernel = _lecun(dim, 3 * self.hidden)
+            self.to_out_kernel = _lecun(self.hidden, dim)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, frames: int = 1):
+        """x: [B F, H, W, C], each batch row's ``frames`` frames consecutive."""
+        if self.multi_frame != (frames > 1):
+            raise ValueError(f"this FrameAttention holds the parameters of "
+                             f"{'F > 1' if self.multi_frame else 'F == 1'} and got F={frames} "
+                             "(UNet(multi_frame=...) follows the Flax tree)")
+        if frames > 1:
+            bf, h, w, c = x.shape
+            tokens = x.reshape(bf // frames, frames, h * w, c).transpose(1, 2)
+            out = self.Attention_0(tokens.reshape(-1, frames, c),
+                                   pos_bias=self.RelativePositionBias_0(frames))
+            return (out.reshape(bf // frames, h * w, frames, -1).transpose(1, 2)
+                    .reshape(bf, h, w, -1))
         dt = self.dtype or x.dtype
         w_qkv, w_out = whole(self, "to_qkv_kernel"), whole(self, "to_out_kernel")
         w_eff = (w_qkv[:, 2 * self.hidden:] @ w_out).to(dt)
@@ -406,8 +495,8 @@ class PreNormResidual(nn.Module):
         self.ChannelLayerNorm_0 = ChannelLayerNorm(dim)
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(self.ChannelLayerNorm_0(x)) + x
+    def forward(self, x, **kwargs):
+        return self.fn(self.ChannelLayerNorm_0(x), **kwargs) + x
 
 
 class UNet(nn.Module):
@@ -432,6 +521,9 @@ class UNet(nn.Module):
     every rank. ``sp_mesh`` runs the LinearAttentionBlocks
     sequence-parallel. The parameters themselves are split by
     ``parallel.mesh.shard_params``; a module gathers what it needs whole.
+    ``multi_frame`` builds the frame attention's F > 1 parameters (JAX's
+    tree at F > 1) in place of its F == 1 ones; on frames there are no
+    channel-major or tp-split stages, as in JAX.
     """
 
     def __init__(self, dim: int, channels: int = 2, out_dim: Optional[int] = None,
@@ -441,7 +533,8 @@ class UNet(nn.Module):
                  fp32_head: bool = False, cm_conv_stages: bool = False,
                  sigmoid_last_channel: bool = False, padding_mode: str = "zeros",
                  self_condition: bool = False, tp_mesh: Optional[Mesh] = None,
-                 tp_min_width: int = 128, sp_mesh: Optional[Mesh] = None):
+                 tp_min_width: int = 128, sp_mesh: Optional[Mesh] = None,
+                 multi_frame: bool = False):
         super().__init__()
         if padding_mode not in ("zeros", "circular"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}")
@@ -462,7 +555,8 @@ class UNet(nn.Module):
         self.init_conv = Conv2dPadded(channels * (2 if self_condition else 1), dim,
                                       init_kernel_size, 1, init_kernel_size // 2, dt, pm)
         if frame_attention:
-            self.init_frame_attn = PreNormResidual(dim, FrameAttention(dim, *heads, dt))
+            self.init_frame_attn = PreNormResidual(dim, FrameAttention(dim, *heads, dt,
+                                                                       multi_frame))
         self.emb_conv_0 = nn.Conv2d(channels, dim, 1)
         self.emb_conv_1 = Conv2dPadded(dim, dim, 3, 1, 1, dt)
         self.combine_conv = nn.Conv2d(2 * dim, dim, 1)
@@ -492,7 +586,8 @@ class UNet(nn.Module):
         self.mid_block1 = ResnetBlock(mid, mid, time_dim, g, dt, pm)
         self.mid_spatial_attn = PreNormResidual(mid, Attention(mid, *heads, dt))
         if frame_attention:
-            self.mid_frame_attn = PreNormResidual(mid, FrameAttention(mid, *heads, dt))
+            self.mid_frame_attn = PreNormResidual(mid, FrameAttention(mid, *heads, dt,
+                                                                      multi_frame))
         self.mid_block2 = ResnetBlock(mid, mid, time_dim, g, dt, pm)
         self.ups = []
         for i, (din, dout) in enumerate(reversed(in_out)):
@@ -508,17 +603,21 @@ class UNet(nn.Module):
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
         self.head_dtype = head_dt
 
-    def _use_cm(self, width: int, x: torch.Tensor) -> bool:
+    def _use_cm(self, width: int, x: torch.Tensor, frames: int = 1) -> bool:
         """Whether a stage of ``width`` channels on NHWC ``x`` runs
-        channel-major (JAX's ``_use_cm``: never with circular padding)."""
-        return (self.cm_conv_stages and width < 128 and x.ndim == 4
+        channel-major (JAX's ``_use_cm``: never with circular padding, nor
+        on frames)."""
+        return (self.cm_conv_stages and width < 128 and x.ndim == 4 and frames == 1
                 and self.padding_mode == "zeros"
                 and x.shape[1] == x.shape[2] and x.shape[2] <= MAX_P)
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, cond: Optional[torch.Tensor] = None,
                 null_mask: Optional[torch.Tensor] = None,
                 x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, H, W, channels]; time: [B] (or scalar) integer timesteps;
+        """x: [B, H, W, channels], or [B, F, H, W, channels] with a frame
+        axis (F == 1 runs as [B, H, W, channels] and keeps its frame axis; F
+        > 1 needs ``multi_frame``, and cond, null_mask and x_self_cond
+        then take the frame axis too); time: [B] (or scalar) integer timesteps;
         cond: an optional [B, H, W, channels] conditioning image (the
         residual gradient), which replaces the stem's output by
         ``combine_conv([x, emb(cond)])``; null_mask: an optional [B] bool
@@ -527,15 +626,40 @@ class UNet(nn.Module):
         conditioning branch, with a zero cond; only cond=None bypasses it.
         x_self_cond: with ``self_condition``, the [B, H, W, channels] image
         put before x on the channel axis (zeros when None); ignored
-        otherwise, as in JAX."""
+        otherwise, as in JAX.
+
+        Frames (JAX's ``UNet.__call__``): each batch row's F frames run as
+        consecutive images of one batch ([B F, H, W, C]) through the convs,
+        the linear and the spatial attention; the Blocks' GroupNorm spans a
+        row's frames, the time embedding is the row's, and the frame
+        attention mixes the frames of each pixel."""
+        frames, squeeze = 1, False
+        if x.ndim == 5:
+            if x.shape[1] == 1:
+                x, squeeze = x[:, 0], True
+                x_self_cond = None if x_self_cond is None else x_self_cond[:, 0]
+                cond = None if cond is None else cond[:, 0]
+            else:
+                frames = x.shape[1]
         time = torch.broadcast_to(torch.atleast_1d(time), (x.shape[0],))
+        if frames > 1:
+            x = x.flatten(0, 1)
+            x_self_cond = None if x_self_cond is None else x_self_cond.flatten(0, 1)
+            cond = None if cond is None else cond.flatten(0, 1)
+            null_mask = None if null_mask is None else null_mask.repeat_interleave(frames)
+        out = self._forward(x, time, cond, null_mask, x_self_cond, frames)
+        if frames > 1:
+            return out.unflatten(0, (-1, frames))
+        return out[:, None] if squeeze else out
+
+    def _forward(self, x, time, cond, null_mask, x_self_cond, frames: int):
         if self.self_condition:
             if x_self_cond is None:
                 x_self_cond = torch.zeros_like(x)
             x = torch.cat([x_self_cond.to(x.dtype), x], dim=-1)
         x = self.init_conv(x)
         if self.frame_attention:
-            x = self.init_frame_attn(x)
+            x = self.init_frame_attn(x, frames=frames)
         if cond is not None:
             if null_mask is not None:
                 cond = torch.where(null_mask.reshape(-1, 1, 1, 1), 0.0, cond)
@@ -552,9 +676,10 @@ class UNet(nn.Module):
         tp = self.tp_mesh if self.tp_mesh is not None and self.tp_mesh.tp > 1 else None
 
         def wide(width: int) -> bool:
-            """A stage split over tp (JAX ``_tp_constrain``'s condition)."""
+            """A stage split over tp (JAX ``_tp_constrain``'s condition:
+            never on frames)."""
             return (tp is not None and width >= self.tp_min_width and width % tp.tp == 0
-                    and self.resnet_groups % tp.tp == 0)
+                    and self.resnet_groups % tp.tp == 0 and frames == 1)
 
         def whole_act(a, split: bool):
             """An activation whole, for work every rank does alike."""
@@ -572,7 +697,7 @@ class UNet(nn.Module):
         split = False  # whether x holds the rank's channels only
         skips = []  # (layout "cm" or "nat", tensor, split)
         for width, res0, res1, attn, down in self.downs:
-            if self._use_cm(width, x):
+            if self._use_cm(width, x, frames):
                 x, split = whole_act(x, split), False
                 h, w = x.shape[1:3]
                 xc = attn(res1(res0(channel_major(x), t, cm=h), t, cm=h), cm=True)
@@ -582,7 +707,8 @@ class UNet(nn.Module):
                 x, split = wide_stage(cols_input(x, split), res0, res1, attn), True
                 skips.append(("nat", x, True))
             else:
-                x, split = attn(res1(res0(whole_act(x, split), t), t)), False
+                x = res1(res0(whole_act(x, split), t, frames=frames), t, frames=frames)
+                x, split = attn(x), False
                 skips.append(("nat", x, False))
             if down is not None:
                 x = down(gather(x, -1, tp.tp_group, partial=True), tp) if split else down(x)
@@ -591,19 +717,19 @@ class UNet(nn.Module):
         if wide(mid):
             x = whole_act(self.mid_block1(cols_input(x, split), t, tp=tp), True)
         else:
-            x = self.mid_block1(whole_act(x, split), t)
+            x = self.mid_block1(whole_act(x, split), t, frames=frames)
         b, h, w, c = x.shape
         x = self.mid_spatial_attn(x.reshape(b, h * w, c)).reshape(b, h, w, c)
         if self.frame_attention:
-            x = self.mid_frame_attn(x)
+            x = self.mid_frame_attn(x, frames=frames)
         if wide(mid):
             x, split = self.mid_block2(enter_partial(x, tp.tp_group), t, tp=tp), True
         else:
-            x, split = self.mid_block2(x, t), False
+            x, split = self.mid_block2(x, t, frames=frames), False
 
         for width, res0, res1, attn, up in self.ups:
             kind, skip, skip_split = skips.pop()
-            if kind == "cm" and self._use_cm(width, x):
+            if kind == "cm" and self._use_cm(width, x, frames):
                 x = whole_act(x, split)
                 h, w = x.shape[1:3]
                 xc = torch.cat([channel_major(x), skip], dim=1)
@@ -617,12 +743,13 @@ class UNet(nn.Module):
                     x, split = wide_stage(x, res0, res1, attn), True
                 else:
                     x = torch.cat([whole_act(x, split), whole_act(skip, skip_split)], dim=-1)
-                    x, split = attn(res1(res0(x, t), t)), False
+                    x = res1(res0(x, t, frames=frames), t, frames=frames)
+                    x, split = attn(x), False
             if up is not None:
                 x = up(gather(x, -1, tp.tp_group, partial=True), tp) if split else up(x)
 
         x = whole_act(x, split)
-        if self._use_cm(self.dim, x) and not self.fp32_head:
+        if self._use_cm(self.dim, x, frames) and not self.fp32_head:
             h, w = x.shape[1:3]
             xc = torch.cat([channel_major(x), channel_major(r)], dim=1)
             x = from_channel_major(self.final_block(xc, cm=h), h, w)
@@ -630,7 +757,7 @@ class UNet(nn.Module):
             x = torch.cat([x, r], dim=-1)
             if self.fp32_head:
                 x = x.float()
-            x = self.final_block(x)
+            x = self.final_block(x, frames=frames)
         c = self.final_conv
         x = _conv(x, whole(c, "weight"), whole(c, "bias"), self.head_dtype)
         if self.sigmoid_last_channel:

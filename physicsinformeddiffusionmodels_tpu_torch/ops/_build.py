@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-All ``csrc/*.cu`` sources are compiled by ONE plain ``nvcc`` call (which
-compiles them in parallel) into one
+Each ``csrc/*.cu`` source is compiled by a plain ``nvcc -c`` of its own,
+all started together, and one more ``nvcc`` links the objects into one
 shared library with a C interface (no PyTorch headers, so it builds in
 seconds). The library goes to ``_build/`` inside the package (git-ignored),
 under a name that carries a hash of the sources and flags. It is compiled to
@@ -26,11 +26,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# --threads 0: nvcc compiles the sources side by side, one thread per CPU
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
-)
+# one nvcc -c a source, side by side (-Xptxas -v: registers, shared memory
+# and spills of every kernel), then one link
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of csrc/*.cu: every pointer and the stream as void*, ints as
@@ -58,8 +59,13 @@ _SIGNATURES = {
     "pidm_linear_attention": ([_P] * 7 + [_I] * 4 + [_P], _I),
     # x, dy, w_qkv, w_out, M, stats, dx, dw_qkv, dw_out, work, B, N, C, bf16, stream
     "pidm_linear_attention_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
-    # x, out, a, b, partials, B, N, C, G, S, eps, stream (K5)
-    "pidm_gn_film_silu_packed": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+    # x, out, gamma, beta, scale, shift, B, N, C, G, k, tokens, resident, smem, eps,
+    # stream (K5)
+    "pidm_gn_film_silu_packed": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
+    # k, smem -> clusters the card holds at once (K5)
+    "pidm_gn_film_silu_packed_max_clusters": ([_I] * 2, _I),
+    # cudaGraph_t, int* kernel nodes -> nodes
+    "pidm_graph_nodes": ([_P, _P], _I),
     # x, w, bias, gamma, beta, scale, shift, out, z, stats, B, Ci, Co, P, G, eps, k, smem,
     # bf16, stream (K4)
     "pidm_conv_gn_film_silu": ([_P] * 10 + [_I] * 5 + [_F] + [_I] * 3 + [_P], _I),
@@ -109,19 +115,42 @@ def build() -> tuple[Path, str, float]:
     if out.exists():
         return out, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+    objs.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, procs, log = _nvcc(), [], []
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=True)
-    except subprocess.CalledProcessError as e:
+        for src in _sources():
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(objs / f"{src.stem}.o")]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        for cmd, proc in procs:
+            text, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{text}")
+            log.append(text)
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(objs / f"{src.stem}.o")
+                                                      for src in _sources())]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}")
+        log.append(proc.stdout)
+    except BaseException:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {e.returncode}):\n{' '.join(cmd)}\n{e.stdout}\n{e.stderr}"
-        ) from e
+        raise
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     seconds = time.perf_counter() - t0
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr, seconds
+    return out, "".join(log), seconds
 
 
 @functools.cache

@@ -109,6 +109,14 @@ class StencilGradients:
         self.Dc0 = torch.cat([mk(h, d0, 1), mk(h, d0, 2)], dim=0)
         self.Dc1 = torch.cat([mk(w, d1, 1), mk(w, d1, 2)], dim=0)
 
+    def d_d0(self, f: torch.Tensor) -> torch.Tensor:
+        """The first derivative along H of [..., H, W]."""
+        return torch.einsum("ij,...jw->...iw", self.Dc0[:self.Dc0.shape[1]], f)
+
+    def d_d1(self, f: torch.Tensor) -> torch.Tensor:
+        """The first derivative along W of [..., H, W]."""
+        return torch.einsum("ij,...hj->...hi", self.Dc1[:self.Dc1.shape[1]], f)
+
     def first_second_pair(self, f: torch.Tensor):
         """(d_d0, d_d1, d_d00, d_d11) of ``f`` in two contractions."""
         n0 = self.Dc0.shape[1]

@@ -17,8 +17,9 @@ cluster; ``k2_plan`` sizes it.
 ``group_norm_film_silu_packed`` (K5, ``csrc/group_norm_packed.cu``) computes
 the same function on bf16 x with the affine and FiLM folded into one scale
 and shift per (row, channel) and the one-pass variance E[x^2] - mean^2. It
-is forward only, as the TPU kernel is; no model calls it. Its launches are
-counted in ``group_norm_film_silu_packed.launches``.
+is forward only, as the TPU kernel is; no model calls it. On the card it is
+one launch of one cluster a batch row (``k5_plan``), the fold inside the
+kernel. Its launches are counted in ``group_norm_film_silu_packed.launches``.
 """
 
 from __future__ import annotations
@@ -283,10 +284,53 @@ group_norm_film_silu.launches = group_norm_film_silu.bf16_launches = 0
 group_norm_film_silu.backward_launches = group_norm_film_silu.bf16_backward_launches = 0
 
 
-# K5: the lane-packed bf16 forward of scripts/profile_gn.py
+# K5: the lane-packed bf16 forward of scripts/profile_gn.py. Its launch plan
+# on the H100 (csrc/group_norm_packed.cu): one cluster of k blocks a batch
+# row, each block's token slice copied into shared memory by bulk copies.
+K5_VEC = 8  # bf16 values in one 16-byte vector of the kernel
+# bytes of x a block holds at most (the kernel's mbarriers cover 256 KB)
+K5_RESIDENT_MAX = 192 * 1024
+K5_CHUNK_BYTES, K5_CHUNKS = 32 * 1024, 8  # one bulk copy and its mbarrier; mbarriers a block
+# k grows past the fit while b k does not reach K5_COVER blocks (about one
+# an SM) and a slice stays at least K5_SLICE_MIN bytes; at most the
+# portable cluster of 8
+K5_COVER, K5_SLICE_MIN, K5_CLUSTER_MAX = 128, 16 * 1024, 8
 
-_PACKED_VEC = 8  # bf16 values in one 16-byte load of the kernel
-_PACKED_SPLIT = 256 * 8  # vectors per block of the statistics pass
+
+def _k5_aux(c: int, groups: int) -> int:
+    """Shared memory of a K5 block besides its resident slice (the kernel's
+    ``k5_aux_bytes``): the mbarriers, the warps' per-channel sums, the
+    channel and group sums."""
+    return 8 * K5_CHUNKS + 4 * (2 * 8 * c + 2 * c + 4 * groups)
+
+
+def k5_plan(b: int, n: int, c: int, groups: int = 8, k: Optional[int] = None) -> K2Plan:
+    """K5's launch plan on a bf16 [b, n, c] x (a K2Plan: k blocks a row,
+    ``tokens`` a block, ``resident`` of them in ``smem`` bytes of shared
+    memory, the rest re-read). Without ``k``: k, a power of two, grows
+    until a block's slice fits K5_RESIDENT_MAX, then while b k < K5_COVER
+    and the halved slice keeps K5_SLICE_MIN bytes, up to K5_CLUSTER_MAX. A
+    row that still does not fit is the re-read mode."""
+    tok_bytes = 2 * c
+    if k is None:
+        k = 1
+        while k < K5_CLUSTER_MAX and 2 * k <= n and -(-n // k) * tok_bytes > K5_RESIDENT_MAX:
+            k *= 2
+        while (k < K5_CLUSTER_MAX and 2 * k <= n and b * k < K5_COVER
+               and -(-n // (2 * k)) * tok_bytes >= K5_SLICE_MIN):
+            k *= 2
+    tokens = -(-n // k)
+    resident = min(tokens, K5_RESIDENT_MAX // tok_bytes)
+    return K2Plan(k, tokens, resident, _slice_bytes(resident, c, 2) + _k5_aux(c, groups))
+
+
+def k5_max_clusters(plan: K2Plan) -> int:
+    """How many clusters of K5's ``plan`` the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: it cannot schedule the plan)."""
+    fits = _build.library().pidm_gn_film_silu_packed_max_clusters(plan.k, plan.smem)
+    if fits < 0:
+        _build.check(-fits, "group_norm_film_silu_packed: cudaOccupancyMaxActiveClusters")
+    return fits
 
 
 def _fold_film(gamma, beta, scale, shift):
@@ -326,7 +370,7 @@ def _check_packed(x, gamma, beta, scale, shift, groups) -> None:
             f"x: expected a contiguous, 16-byte aligned [B, N, C] bfloat16 tensor, got "
             f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
     b, _, c = x.shape
-    if c % _PACKED_VEC or 128 % c or c % groups or x.numel() >= 2**31:
+    if c % K5_VEC or 128 % c or c % groups or x.numel() >= 2**31:
         raise ValueError(f"unsupported shape {tuple(x.shape)} with {groups} groups "
                          "(the kernel takes C in 8, 16, 32, 64, 128)")
     _build.check_param(gamma, "gamma", (c,), x.device)
@@ -337,11 +381,14 @@ def _check_packed(x, gamma, beta, scale, shift, groups) -> None:
 
 def group_norm_film_silu_packed(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                 scale: torch.Tensor, shift: torch.Tensor, groups: int = 8,
-                                eps: float = 1e-5) -> torch.Tensor:
+                                eps: float = 1e-5, plan: Optional[K2Plan] = None
+                                ) -> torch.Tensor:
     """K5: GroupNorm -> affine -> FiLM -> SiLU of a bf16 x [B, N, C] with
     128 % C == 0 (and C % 8 == 0), the affine and FiLM folded into a =
-    gamma (scale + 1) and b = beta (scale + 1) + shift in fp32 first.
-    gamma, beta: [C] fp32; scale, shift: [B, C] fp32. Forward only."""
+    gamma (scale + 1) and b = beta (scale + 1) + shift in fp32. gamma,
+    beta: [C] fp32; scale, shift: [B, C] fp32. Forward only. On the card
+    one launch (``plan``, or ``k5_plan``'s for the shape) folds the FiLM
+    itself."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, scale, shift)):
         raise NotImplementedError(
             "group_norm_film_silu_packed is forward only, as the TPU kernel it ports "
@@ -352,17 +399,17 @@ def group_norm_film_silu_packed(x: torch.Tensor, gamma: torch.Tensor, beta: torc
         raise ValueError(f"unsupported device {x.device}")
     _check_packed(x, gamma, beta, scale, shift, groups)
     b, n, c = x.shape
-    a, bb = _fold_film(gamma, beta, scale, shift)
-    splits = max(1, min(64, -(-n * c // _PACKED_VEC // _PACKED_SPLIT)))
+    plan = plan or _k5_plan(b, n, c, groups)
     out = torch.empty_like(x)
-    partials = torch.empty((b, splits, groups, 2), dtype=torch.float32, device=x.device)
     rc = _build.library().pidm_gn_film_silu_packed(
-        x.data_ptr(), out.data_ptr(), a.data_ptr(), bb.data_ptr(), partials.data_ptr(), b, n, c,
-        groups, splits, eps, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), b, n, c, groups, plan.k, plan.tokens, plan.resident, plan.smem, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "group_norm_film_silu_packed")
     group_norm_film_silu_packed.launches += 1
     return out
 
 
+_k5_plan = functools.cache(k5_plan)
 group_norm_film_silu_packed.launches = 0

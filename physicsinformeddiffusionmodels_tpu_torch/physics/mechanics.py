@@ -194,6 +194,21 @@ class MechanicsResidual:
         out = torch.zeros_like(u)
         return out.index_add_(1, self.elem_dofs.reshape(-1), ku_e.reshape(u.shape[0], -1))
 
+    def assemble_dense(self, rho_e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The dense global stiffness [B, neq, neq] of element densities
+        rho_e [B, nels], with the Dirichlet dofs of ``mask`` [B, neq] (bool)
+        replaced by identity rows and columns' diagonal, as JAX's: for
+        evaluation and checks only (the solves are matrix-free)."""
+        b = rho_e.shape[0]
+        rows = self.elem_dofs[:, :, None].expand(-1, 8, 8).reshape(-1)
+        cols = self.elem_dofs[:, None, :].expand(-1, 8, 8).reshape(-1)
+        vals = (rho_e[:, :, None, None] * self.k_loc.to(rho_e.dtype)).reshape(b, -1)
+        k = rho_e.new_zeros(b, self.neq * self.neq)
+        k.index_add_(1, rows * self.neq + cols, vals)
+        k = torch.where(mask[:, :, None], 0.0, k.reshape(b, self.neq, self.neq))
+        return k + mask[:, :, None] * torch.eye(self.neq, dtype=rho_e.dtype,
+                                                device=rho_e.device)
+
     # ------------------------------------------------------------- residual
 
     def displacements_to_dofs(self, disp: torch.Tensor) -> torch.Tensor:

@@ -341,6 +341,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint of this run name")
+    ap.add_argument("--model-yaml", default=None,
+                    help="reference-format model.yaml to configure the run (needs PyYAML)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     add_mesh_args(ap)
     return ap.parse_args(argv)
@@ -396,6 +398,8 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
     if args.resume:
         kw["resume"] = True
     kw.update(mesh_kwargs(args))
+    if getattr(args, "model_yaml", None):
+        return RunConfig.from_model_yaml(args.model_yaml, **kw)
     return RunConfig(**kw)
 
 

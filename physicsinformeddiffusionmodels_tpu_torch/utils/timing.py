@@ -2,7 +2,13 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# a context around every timed replay: ``chip_smoke.py`` sets it to pause its
+# background work while the card is timed
+QUIET = contextlib.nullcontext
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -20,9 +26,11 @@ def graph_ms(fn, reps: int = 20) -> float:
             fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
     torch.cuda.synchronize()
+    with QUIET():
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps

@@ -63,7 +63,8 @@ def test_port_imports_nothing_of_jax():
                  "ops.reshape", "ops.connected_components", "data.mechanics_generator",
                  "generate_mechanics_sets", "train_mechanics", "profile_sampling",
                  "physics.toy", "models.toy", "train_toy", "data.mechanics_generator_gpu",
-                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.seq_attention"):
+                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.seq_attention",
+                 "ops.gradients", "models.blocks"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 40
     assert report["banned"] == []

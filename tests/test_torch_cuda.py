@@ -21,6 +21,7 @@ from physicsinformeddiffusionmodels_tpu_torch.ops.group_norm import (
     group_norm_film_silu_packed,
     group_norm_film_silu_packed_plain,
     group_norm_film_silu_plain,
+    k5_plan,
 )
 from physicsinformeddiffusionmodels_tpu_torch.ops.linear_attention import (
     linear_attention,
@@ -732,7 +733,13 @@ BF16_MUTANTS = {
         "group_norm_bwd.cu", "load_vec<T, V>(fd, sm ? dys + o : dyr + o);",
         "load_vec<float, V>(fd, reinterpret_cast<const float*>(sm ? dys + o : dyr + o));"),
     "K5 variance without mean^2": (
-        "group_norm_packed.cu", "rsqrtf(s2 / cnt - mean * mean + eps)", "rsqrtf(s2 / cnt + eps)"),
+        "group_norm_packed.cu", "rsqrtf(t2 / cnt - mean * mean + eps)", "rsqrtf(t2 / cnt + eps)"),
+    # the last block's sums of a row left out of the cluster's total
+    "K5 cluster partial dropped": (
+        "group_norm_packed.cu", "for (int p = 0; p < k; ++p)", "for (int p = 0; p < k - 1; ++p)"),
+    # the FiLM scale left out of the folded multiplier
+    "K5 FiLM fold without scale": (
+        "group_norm_packed.cu", "a[j] = gamma[c0 + j] * sc1;", "a[j] = gamma[c0 + j];"),
 }
 
 
@@ -761,6 +768,8 @@ def _check_k5(cuda, n, c, b=4):
     torch.cuda.synchronize()
     assert group_norm_film_silu_packed.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    # the cluster adds its blocks' sums in rank order: a call repeats bit for bit
+    assert torch.equal(got, group_norm_film_silu_packed(x, gamma, beta, scale, shift))
     for ref in (group_norm_film_silu_packed_plain(x, gamma, beta, scale, shift),
                 group_norm_film_silu(x, gamma, beta, scale, shift)):
         scale_ = ref.float().abs().max().item()
@@ -774,9 +783,14 @@ K5_TOL = 1e-2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(4096, 32), (1024, 64), (256, 128), (100, 32), (64, 8)])
-def test_packed_kernel_matches_plain_and_k2(cuda, n, c):
-    _check_k5(cuda, n, c)
+@pytest.mark.parametrize("b,n,c", [(64, 4096, 32), (64, 1024, 64), (64, 256, 128), (4, 4096, 32),
+                                   (4, 1024, 64), (4, 256, 128), (4, 100, 32), (4, 64, 8),
+                                   (4, 65536, 32)])
+def test_packed_kernel_matches_plain_and_k2(cuda, b, n, c):
+    """The three K5_SHAPES of chip_smoke.py at B=64 and B=4, a ragged N,
+    C=8, and a row past a cluster's shared memory (the re-read plan)."""
+    assert k5_plan(b, n, c).reread == (n == 65536)
+    _check_k5(cuda, n, c, b)
 
 
 @pytest.mark.cuda

@@ -56,3 +56,26 @@ def test_packed_plain_matches_jax_reference(c):
         x, *(p.float() for p in params), groups=G), atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="forward only"):
         group_norm_film_silu_packed(x.requires_grad_(True), *(p.float() for p in params))
+
+
+@pytest.mark.parametrize("b,n,c", [(64, 4096, 32), (64, 1024, 64), (64, 256, 128), (4, 100, 32),
+                                   (4, 64, 8), (4, 65536, 32), (1, 1, 8), (2, 33, 16)])
+def test_k5_plan(b, n, c):
+    """K5's launch plan (csrc/group_norm_packed.cu): one cluster of k blocks
+    a batch row covering the row, within the card's shared memory and the
+    kernel's mbarriers; a row past the cluster's shared memory is the
+    re-read mode. At the three shapes of chip_smoke.py phase 14 a row fits
+    two blocks (the plan measured fastest at the level-0 shape)."""
+    from physicsinformeddiffusionmodels_tpu_torch.ops import group_norm as gn
+
+    plan = gn.k5_plan(b, n, c)
+    assert plan.k in (1, 2, 4, 8) and plan.tokens == -(-n // plan.k)
+    assert plan.resident * 2 * c <= min(gn.K5_RESIDENT_MAX, gn.K5_CHUNKS * gn.K5_CHUNK_BYTES)
+    assert plan.smem == -(-plan.resident * 2 * c // 16) * 16 + gn._k5_aux(c, 8) <= gn.K2_SMEM_MAX
+    assert plan.reread == (n * 2 * c > gn.K5_CLUSTER_MAX * gn.K5_RESIDENT_MAX)
+    if b == 64:
+        assert plan.k == 2 and not plan.reread
+    # a plan of any other cluster size covers the row too
+    for k in (1, 2, 4, 8):
+        other = gn.k5_plan(b, n, c, k=k)
+        assert other.k == k and other.tokens == -(-n // k)
