@@ -67,21 +67,22 @@ the script exits non-zero:
      from phase 6's.
 The phases run in this order: 1-8, then every other kernel timing (10,
 12, 14, 15ab); then 20 and 21, which need none of 9a's data; then 9, 13,
-15c-f, 16-19, 22 and 11, sharing one temporary directory with phase 9's
-data. Work that times nothing is kept off the critical path:
+15c-f, 16-19, 22, 11 and 24, sharing one temporary directory with phase
+9's data. Work that times nothing is kept off the critical path:
   * the background: from phase 1 on, the data jobs make 9a's and 19a's
     sets, and a CPU-reference worker (this script with ``--cpu-refs``, the
     card hidden from it) computes the CPU halves of the card vs CPU checks
-    9b, 13a, 15e, 16b, 17c, 19c and 22 (their inputs and the CPU's loss,
+    9b, 13a, 15e, 16b, 17c, 19c, 22 and 24c (their inputs and the CPU's loss,
     gradients and outputs; CPU_REFS) as soon as their data is made. Each
     is a niced process group that ``Background.quiet`` stops (SIGSTOP)
     while any phase times, on the host clock or a graph replay, and lets go
     on after; the card halves read the worker's files;
   * the window: the checks that time nothing run after 19d's timing, the
     last of the main paths', in three kinds of process side by side: this
-    one (19e, 22, 11, then 9b, 9e, 13a, 15c, 15e, 16b, 17a, 17c, 19b, 19a's
-    checks, 19c), the card lane (this script with ``--lane``: 18a, 9f, 13d,
-    20a, 21a-b, 5; LANE_CHECKS) and phase 23's two ranks with its torchrun
+    one (19e, 22, 11, then 9b, 9e, 13a, 15c, 15e, 16b, 17a, 17c, 21a-b, 24b,
+    24c, 19b, 19a's checks, 19c), the card lane (this script with
+    ``--lane``: 18a, 9f, 13d, 20a, 5, 24a; LANE_CHECKS) and phase 23's two
+    ranks with its torchrun
     CLI. The lane and the ranks start after the build and import meanwhile
     (stopped, as the background, while a phase times); 23's timed turns
     run last, on a quiet card.
@@ -230,6 +231,23 @@ waited for its CPU reference.
      before their timed turns,
      and with ``--mesh-tp 2`` and no process group, which must exit
      non-zero naming torchrun. A rank that fails or hangs fails the phase.
+ 24. the last modules, timing nothing: (a) ``export_portable_checkpoint``
+     of 9f's card-trained run: every leaf the run's EMA weight rounded to
+     float16, no raw weights or optimizer state; ``sample_eval.load_run``
+     of the portable directory, one fp32 forward at B=8 card vs CPU
+     (phase 5's tolerance), K1 8 and K2 38 launches; (b) the committed
+     300k EMA weights (phase 5's) without the frame attention, rewritten
+     into the reference Unet3D's layout (REFERENCE_LAYOUT, the inverse of
+     ``models/reference_port.py``'s transforms) with dead-module tensors,
+     ``torch.save``d as ``{'model': sd}`` and imported by
+     ``import_reference_checkpoint``: both checkpoint slots bit-equal to
+     those weights, and the imported model's card forward bit-equal to
+     phase 5's forward of the same weights in UNet(frame_attention=False),
+     under cuDNN's deterministic algorithms, K1 8 and K2 38 launches; (c)
+     UNet(dim=32, init_dim=48, use_sparse_linear_attn=False,
+     cond_path=False), seeded: the forward (given a cond, which it ignores)
+     and one fp32 step card vs CPU by phase 5's and 9b's rules, no K1 and
+     38 K2 launches a UNet call, forward and backward.
 The last three lines are a JSON object with each kernel's launches (counted
 on the fp32 training path for K1 and K2, on the bf16 one for their
 forward and backward on bf16 x (K2's: 36 of a step's 38), on the stage run
@@ -449,6 +467,12 @@ OPTIONS_BATCH = 16
 # and K2's batch, so still 8 and 38 launches a forward
 FRAMES_BATCH, FRAMES = 2, 3
 OPTIONS_FWD_LAUNCHES = ((8, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
+# phase 24c: UNet(dim=32, init_dim=PLAIN_INIT_DIM, use_sparse_linear_attn=False,
+# cond_path=False) at 64x64, B=PLAIN_BATCH, seeded weights; card vs CPU by
+# phase 5's and 9b's rules; no K1 and 38 K2 a UNet call, forward and backward
+PLAIN_INIT_DIM, PLAIN_BATCH = 48, 8
+PLAIN_FWD_LAUNCHES = ((0, 0, 0, 0), (38, 0, 0, 0), (0, 0, 0, 0))
+PLAIN_STEP_LAUNCHES = ((0, 0, 0, 0), (38, 0, 38, 0), (0, 0, 0, 0))
 # phase 23: the parallel layer (parallel/) on PAR_WORLD ranks that share
 # the one card over gloo (NCCL refuses two ranks on one device), each rank
 # a process of this script (``--parallel-rank``), started after phase 1;
@@ -2495,9 +2519,9 @@ def _simp_draw(fem, families, rng):
 
 
 def simp_checks(tmp: Path) -> None:
-    """Phases 21a and 21b (the card lane runs them): the batched SIMP card
-    vs CPU at P=16, 3 iterations, and 12 iterations against the host
-    SIMP."""
+    """Phases 21a and 21b (the main process runs them in the window): the
+    batched SIMP card vs CPU at P=16, 3 iterations, and 12 iterations
+    against the host SIMP."""
     import torch
 
     from physicsinformeddiffusionmodels_tpu_torch.data.mechanics_generator import (
@@ -2729,6 +2753,86 @@ def unet_options_phase(dev, smi: str, refs: "CpuRefs") -> tuple:
          k1_k2_launches=f"{counts[0][0]}/{counts[1][0]}", cpu_s=f"{ref['seconds']:.2f}")
     print(f"  {smi}", flush=True)
     return tuple(tuple(r) for r in step_launches)
+
+
+def _plain_options_model():
+    """Phase 24c's seeded UNet without linear attention or cond path, on
+    the CPU."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(24)
+    return UNet(dim=32, channels=2, init_dim=PLAIN_INIT_DIM, use_sparse_linear_attn=False,
+                cond_path=False)
+
+
+def _plain_options_loss_fn(dev):
+    from physicsinformeddiffusionmodels_tpu_torch import train
+    from physicsinformeddiffusionmodels_tpu_torch.config import RunConfig
+    from physicsinformeddiffusionmodels_tpu_torch.diffusion.schedule import create_schedule
+
+    cfg = RunConfig(compute_dtype="float32")
+    return train.build_darcy_loss_fn(create_schedule(cfg.diff_steps),
+                                     train.make_physics(cfg, dev), cfg)
+
+
+def ref_24c(tmp: Path) -> dict:
+    """The CPU half of phase 24c (computed by the CPU-reference worker): a
+    batch of 9a's fields in ``tmp``, t, noise and x drawn from seed 24; the
+    forward of x (with a cond, which this UNet ignores) and one fp32 step on
+    the Darcy loss."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch.data.datasets import load_darcy_dataset
+
+    data = load_darcy_dataset(tmp / "train").stacked()
+    rng = np.random.default_rng(24)
+    b = PLAIN_BATCH
+    batch = torch.from_numpy(data[rng.integers(0, len(data), b)])
+    t = torch.from_numpy(rng.integers(0, 100, b))
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(batch.shape).astype(np.float32))
+    model = _plain_options_model()
+    with torch.no_grad():
+        y = model(x, t)
+    loss, _ = _plain_options_loss_fn("cpu")(model, batch, t, noise)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    return {"inputs": (batch, t, noise, x), "y": y, "loss": loss.detach(), "grads": list(grads)}
+
+
+def plain_options_phase(dev, refs: "CpuRefs") -> None:
+    """Phase 24c: the UNet's ``init_dim``, ``use_sparse_linear_attn=False``
+    and ``cond_path=False``, seeded, card vs CPU (``ref_24c``): the forward
+    (given a cond, which it ignores) within phase 5's 5e-4 and one fp32
+    step by 9b's rules, the launch counts zeroed before and read after each:
+    no K1, 38 K2 a UNet call."""
+    import torch
+
+    ph = phase(f"24c UNet(dim=32, init_dim={PLAIN_INIT_DIM}) without linear attention or "
+               "cond path, card vs CPU")
+    ref = refs.get("24c")
+    batch, t, noise, x = (a.to(dev) for a in ref["inputs"])
+    model = _plain_options_model().to(dev)
+    zero_launch_counts()
+    with torch.no_grad():
+        y = model(x, t, cond=noise)
+        torch.cuda.synchronize()
+        fwd_counts = launch_counts()
+    err = (y.cpu() - ref["y"]).abs().max().item()
+    if fwd_counts != PLAIN_FWD_LAUNCHES or not torch.isfinite(y).all() or err > 5e-4:
+        raise AssertionError(f"24c: forward card vs CPU max |diff| {err:.3e}, launches "
+                             f"{fwd_counts} (want {PLAIN_FWD_LAUNCHES})")
+    zero_launch_counts()
+    loss, _ = _plain_options_loss_fn(dev)(model, batch, t, noise)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != PLAIN_STEP_LAUNCHES:
+        raise AssertionError(f"24c: step launches {counts} (want {PLAIN_STEP_LAUNCHES})")
+    done(ph, forward_max_abs_err=f"{err:.3e}",
+         **hold_fp32_step(model, loss, grads, ref["loss"], ref["grads"]),
+         k1_k2_launches=f"{counts[0][0]}/{counts[1][0]}", cpu_s=f"{ref['seconds']:.2f}")
 
 
 def _par_darcy_inputs(b: int, dev) -> tuple:
@@ -3359,7 +3463,7 @@ CPU_REFS = {"22": ("train", ref_22), "9b": ("train", ref_fp32_step), "13a": ("tr
                                                batch_size=DDIM_BATCH)),
             "17c": ("train", functools.partial(ref_fp32_step, run=GUIDED_RUN,
                                                batch_size=TRAIN_BATCH)),
-            "19c": ("mechanics", ref_19c)}
+            "24c": ("train", ref_24c), "19c": ("mechanics", ref_19c)}
 
 
 def cpu_refs_worker(tmp: Path) -> int:
@@ -3455,10 +3559,158 @@ def checkpoint_forward(tmp: Path) -> None:
     done(ph, step=step, max_abs_err=f"{err:.3e}")
 
 
+def _x_t_b8(seed: int) -> tuple:
+    """Phase 5's draw: x [8, 64, 64, 2] and t from ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 2)).astype(np.float32))
+    return x, torch.from_numpy(rng.integers(0, 100, 8))
+
+
+def _tree_leaves(tree: dict, prefix: tuple = ()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def portable_export_check(tmp: Path) -> None:
+    """Phase 24a (the card lane runs it, after 9f): the port's export of 9f's
+    card-trained run (``export_portable_checkpoint.main``): every leaf is
+    the run's EMA weight rounded to float16, the export holds no raw
+    weights and no optimizer state; ``sample_eval.load_run`` of the portable
+    directory, one fp32 forward at B=8 card vs CPU (phase 5's tolerance),
+    K1 8 and K2 38 launches."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import export_portable_checkpoint, sample_eval
+    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import msgpack_restore
+
+    ph = phase("24a portable export of 9f's run, card vs CPU")
+    run, out = tmp / "runs" / "smoke", tmp / "portable"
+    dst = export_portable_checkpoint.main(["--model-dir", str(run), "--out", str(out)])
+    src = msgpack_restore((run / "model" / "checkpoint_3.msgpack").read_bytes())
+    exp = msgpack_restore(dst.read_bytes())
+    ema, got = list(_tree_leaves(src["ema_params"])), list(_tree_leaves(exp["ema_params"]))
+    if ([k for k, _ in ema] != [k for k, _ in got] or exp["params"] or exp["opt_state"]
+            or exp["step"] != 3 or not ema):
+        raise AssertionError(f"24a: the export of {run} holds another tree than its EMA's")
+    for (path, a), (_, b) in zip(ema, got):
+        if b.dtype != np.float16 or not np.array_equal(b, a.astype(np.float16)):
+            raise AssertionError(f"24a: {path} is not the EMA weight rounded to float16")
+    _, model, step = sample_eval.load_run(out, compute_dtype="float32", device="cuda")
+    _, model_cpu, _ = sample_eval.load_run(out, compute_dtype="float32", device="cpu")
+    x, t = _x_t_b8(24)
+    zero_launch_counts()
+    with torch.no_grad():
+        y = model(x.cuda(), t.cuda())
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        y_ref = model_cpu(x, t)
+    err = (y.cpu() - y_ref).abs().max().item()
+    if counts != OPTIONS_FWD_LAUNCHES or not torch.isfinite(y).all() or err > 5e-4 or step != 3:
+        raise AssertionError(f"24a: portable forward card vs CPU max |diff| {err:.3e}, "
+                             f"launches {counts} (want {OPTIONS_FWD_LAUNCHES}), step {step}")
+    done(ph, leaves=len(got), bytes=dst.stat().st_size, max_abs_err=f"{err:.3e}",
+         k1_k2_launches=f"{counts[0][0]}/{counts[1][0]}")
+
+
+# the inverse of each layout transform of models/reference_port.py (by its
+# name): a Flax leaf back in the reference Unet3D's layout
+REFERENCE_LAYOUT = {
+    "_linear": lambda a: a.T,
+    "_conv3d": lambda a: a.transpose(3, 2, 0, 1)[:, :, None],
+    "_conv2d": lambda a: a.transpose(3, 2, 0, 1),
+    "_pointwise3d": lambda a: a.T[:, :, None, None, None],
+    "_pointwise2d": lambda a: a.T[:, :, None, None],
+    "_conv_transpose3d": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1][:, :, None],
+    "_gamma": lambda a: a.reshape(1, -1, 1, 1, 1),
+    "_copy": lambda a: a,
+}
+# tensors of modules the reference builds but never runs (shape by key)
+REFERENCE_DEAD = {"init_temporal_attn.fn.to_qkv.weight": (768, 32),
+                  "mid_temporal_attn.fn.to_out.weight": (256, 256),
+                  "time_rel_pos_bias.relative_attention_bias.weight": (32, 8),
+                  "sign_emb_CNN.0.weight": (32, 1, 3),
+                  "downs.0.2.fn.fn.to_q.weight": (256, 32, 1, 1),
+                  "rotary_emb.inv_freq": (16,)}
+
+
+def reference_import_check(tmp: Path) -> None:
+    """Phase 24b (the main process runs it, in the window): the committed 300k EMA
+    weights that phase 5 loads, but for the frame attention (the reference
+    has none live, so its import builds UNet(frame_attention=False)), in the
+    reference layout (REFERENCE_LAYOUT) with REFERENCE_DEAD's tensors, saved
+    as ``{'model': sd}`` and imported by the port's CLI: both slots of the
+    written checkpoint bit-equal to those weights, and one fp32 forward on
+    the card of ``sample_eval.load_run``'s model bit-equal to phase 5's
+    forward on its inputs of the same weights in UNet(frame_attention=False),
+    both under cuDNN's deterministic algorithms; K1 8 and K2 38 launches."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import import_reference_checkpoint, sample_eval
+    from physicsinformeddiffusionmodels_tpu_torch.models.convert import (
+        torch_state_dict_from_flax)
+    from physicsinformeddiffusionmodels_tpu_torch.models.reference_port import (
+        reference_key_map)
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import load_checkpoint
+
+    ph = phase("24b reference-checkpoint import of the 300k EMA weights")
+    raw = load_checkpoint(RUN / "model" / "checkpoint_300000.msgpack")
+    weights = {k: v for k, v in raw["ema_params"]["params"].items()
+               if not k.startswith("FrameAttention") and not k.endswith("frame_attn")}
+    key_map = reference_key_map(32)
+    sd = {}
+    for path, a in _tree_leaves(weights):
+        tkey, transform = key_map[path]
+        sd[tkey] = torch.from_numpy(np.ascontiguousarray(
+            REFERENCE_LAYOUT[transform.__name__](a)))
+    rng = np.random.default_rng(24)
+    for k, shape in REFERENCE_DEAD.items():
+        sd[k] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    (tmp / "reference").mkdir(exist_ok=True)
+    pt, out = tmp / "reference" / "checkpoint_300000.pt", tmp / "imported"
+    torch.save({"model": sd}, pt)
+    path = import_reference_checkpoint.main(["--checkpoint", str(pt), "--gov-eqs", "darcy",
+                                             "--out", str(out)])
+    imported, want = load_checkpoint(path), list(_tree_leaves(weights))
+    for slot in ("params", "ema_params"):
+        got = list(_tree_leaves(imported[slot]["params"]))
+        if [k for k, _ in got] != [k for k, _ in want] or not all(
+                np.array_equal(a, b) for (_, a), (_, b) in zip(got, want)):
+            raise AssertionError(f"24b: the imported {slot} are not the 300k weights")
+    if imported["opt_state"] or imported["step"] != 300000:
+        raise AssertionError(f"24b: step {imported['step']}, opt_state {imported['opt_state']}")
+    cfg, model, _ = sample_eval.load_run(out, compute_dtype="float32", device="cuda")
+    direct = UNet(dim=32, channels=2, frame_attention=False)
+    direct.load_state_dict(torch_state_dict_from_flax(weights))
+    direct = direct.cuda().eval()
+    x, t = (a.cuda() for a in _x_t_b8(0))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                                     benchmark=False, allow_tf32=False):
+        zero_launch_counts()
+        y = model(x, t)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        y_direct = direct(x, t)
+    if (cfg.frame_attention or counts != OPTIONS_FWD_LAUNCHES or not torch.isfinite(y).all()
+            or not torch.equal(y, y_direct)):
+        raise AssertionError(f"24b: the imported forward is not phase 5's weights' bit for bit "
+                             f"(max |diff| {(y - y_direct).abs().max().item():.3e}), launches "
+                             f"{counts}, frame_attention {cfg.frame_attention}")
+    done(ph, reference_tensors=len(sd), dead=len(REFERENCE_DEAD),
+         max_abs_out=f"{y.abs().max().item():.3e}",
+         k1_k2_launches=f"{counts[0][0]}/{counts[1][0]}")
+
+
 # the checks that time nothing and need no state of the main process, run
 # in order by the card lane beside the main process's own window
 LANE_CHECKS = {"18a": graph_bit_equality, "9f": training_cli_fp32, "13d": training_cli_bf16,
-               "20a": toy_card_vs_cpu, "21ab": simp_checks, "5": checkpoint_forward}
+               "20a": toy_card_vs_cpu, "5": checkpoint_forward, "24a": portable_export_check}
 
 
 def lane_worker(tmp: Path) -> int:
@@ -3747,13 +3999,18 @@ def main() -> int:
 
         def card_shared():
             # after 19d's timing: phase 23's ranks run their checks, the card
-            # lane LANE_CHECKS (18a, 9f, 13d) and the torchrun CLI its steps
+            # lane LANE_CHECKS (18a, 9f, 13d, ...) and the torchrun CLI its steps
             # beside 19e, 22, 11 and the later checks, which time nothing but
             # 19e's and 11's samples/s (marked so)
             par.start_checks()
             lane.start()
             cli23.update(torchrun_cli_start(Path(tmp)))
 
+        # 21a-b, 24b and 24c need nothing of the card lane: here they keep
+        # the lane, which bounds the window, short
+        later += [functools.partial(simp_checks, Path(tmp)),
+                  functools.partial(reference_import_check, Path(tmp)),
+                  functools.partial(plain_options_phase, dev, refs)]
         mech_k1, mech_k2, mech_sps = mechanics_phase(Path(tmp), dev, smi, k1_args, k2_args,
                                                      jobs, card_shared, later, refs)
         steps_per_s.update(mech_sps)
@@ -3775,7 +4032,7 @@ def main() -> int:
         done(ph)
         for check in later:
             check()
-        lane.finish()  # its phases' lines: 18a, 9f, 13d
+        lane.finish()  # its phases' lines: LANE_CHECKS'
 
         ph = phase("23 the parallel layer: the ranks' checks and timed turns, the torchrun CLI")
         # the timed turns start when the CLI has ended: on a quiet card

@@ -39,9 +39,13 @@ zero-padded, and the channel-major stages run only with zero padding.
 ``self_condition`` concatenates ``x_self_cond`` (zeros when None) before x
 on the channel axis, so the init conv takes 2 x ``channels`` inputs. The
 residual-gradient conditioning modules (``emb_conv_0``, ``emb_conv_1``,
-``combine_conv``) are built in every UNet, so that every checkpoint loads;
-only a call with ``cond`` runs them (``UNet.forward``, and
-``apply_with_guidance`` for classifier-free guidance).
+``combine_conv``) are built in every UNet unless ``cond_path=False``, so
+that every checkpoint loads; only a call with ``cond`` runs them
+(``UNet.forward``, and ``apply_with_guidance`` for classifier-free
+guidance). As in JAX, ``init_dim`` sets the width of the init conv, of the
+init frame attention and of the conditioning modules (the first level then
+maps ``init_dim`` to ``dim``), and ``use_sparse_linear_attn=False`` builds
+no ``LinearAttentionBlock``: such a UNet launches no K1.
 """
 
 from __future__ import annotations
@@ -487,6 +491,11 @@ class FrameAttention(nn.Module):
         return x.to(dt) @ w_eff
 
 
+def _no_attention(x: torch.Tensor, **kwargs) -> torch.Tensor:
+    """A level stage's attention in a UNet built without it."""
+    return x
+
+
 class PreNormResidual(nn.Module):
     """x + fn(LayerNorm(x))."""
 
@@ -523,7 +532,10 @@ class UNet(nn.Module):
     ``parallel.mesh.shard_params``; a module gathers what it needs whole.
     ``multi_frame`` builds the frame attention's F > 1 parameters (JAX's
     tree at F > 1) in place of its F == 1 ones; on frames there are no
-    channel-major or tp-split stages, as in JAX.
+    channel-major or tp-split stages, as in JAX. ``init_dim`` (default
+    ``dim``), ``use_sparse_linear_attn`` and ``cond_path`` as in the module
+    docstring; without the cond path a ``cond`` argument is ignored, as JAX's
+    UNet ignores it.
     """
 
     def __init__(self, dim: int, channels: int = 2, out_dim: Optional[int] = None,
@@ -534,7 +546,8 @@ class UNet(nn.Module):
                  sigmoid_last_channel: bool = False, padding_mode: str = "zeros",
                  self_condition: bool = False, tp_mesh: Optional[Mesh] = None,
                  tp_min_width: int = 128, sp_mesh: Optional[Mesh] = None,
-                 multi_frame: bool = False):
+                 multi_frame: bool = False, init_dim: Optional[int] = None,
+                 use_sparse_linear_attn: bool = True, cond_path: bool = True):
         super().__init__()
         if padding_mode not in ("zeros", "circular"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}")
@@ -542,7 +555,9 @@ class UNet(nn.Module):
         heads = (attn_heads, attn_dim_head)
         time_dim = dim * 4
         self.dim = dim
+        init_dim = init_dim or dim
         self.frame_attention = frame_attention
+        self.cond_path = cond_path
         self.fp32_head = fp32_head
         self.cm_conv_stages = cm_conv_stages
         self.sigmoid_last_channel = sigmoid_last_channel
@@ -552,19 +567,20 @@ class UNet(nn.Module):
         self.resnet_groups = resnet_groups
         self.tp_mesh, self.tp_min_width = tp_mesh, tp_min_width
 
-        self.init_conv = Conv2dPadded(channels * (2 if self_condition else 1), dim,
+        self.init_conv = Conv2dPadded(channels * (2 if self_condition else 1), init_dim,
                                       init_kernel_size, 1, init_kernel_size // 2, dt, pm)
         if frame_attention:
-            self.init_frame_attn = PreNormResidual(dim, FrameAttention(dim, *heads, dt,
-                                                                       multi_frame))
-        self.emb_conv_0 = nn.Conv2d(channels, dim, 1)
-        self.emb_conv_1 = Conv2dPadded(dim, dim, 3, 1, 1, dt)
-        self.combine_conv = nn.Conv2d(2 * dim, dim, 1)
+            self.init_frame_attn = PreNormResidual(init_dim, FrameAttention(
+                init_dim, *heads, dt, multi_frame))
+        if cond_path:
+            self.emb_conv_0 = nn.Conv2d(channels, init_dim, 1)
+            self.emb_conv_1 = Conv2dPadded(init_dim, init_dim, 3, 1, 1, dt)
+            self.combine_conv = nn.Conv2d(2 * init_dim, init_dim, 1)
         self.time_pos_emb = SinusoidalPosEmb(dim)
         self.time_mlp_0 = nn.Linear(dim, time_dim)
         self.time_mlp_1 = nn.Linear(time_dim, time_dim)
 
-        dims = [dim] + [dim * m for m in dim_mults]
+        dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         counts = {"ResnetBlock": 0, "LinearAttentionBlock": 0, "Downsample": 0, "Upsample": 0}
 
@@ -573,13 +589,18 @@ class UNet(nn.Module):
             counts[kind] += 1
             return module
 
+        def attention(width: int):
+            if not use_sparse_linear_attn:
+                return _no_attention
+            return add("LinearAttentionBlock", LinearAttentionBlock(width, *heads, dt, sp_mesh))
+
         self.downs = []
         for i, (din, dout) in enumerate(in_out):
             self.downs.append((
                 dout,
                 add("ResnetBlock", ResnetBlock(din, dout, time_dim, g, dt, pm)),
                 add("ResnetBlock", ResnetBlock(dout, dout, time_dim, g, dt, pm)),
-                add("LinearAttentionBlock", LinearAttentionBlock(dout, *heads, dt, sp_mesh)),
+                attention(dout),
                 add("Downsample", Downsample(dout, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         mid = dims[-1]
@@ -595,11 +616,11 @@ class UNet(nn.Module):
                 din,
                 add("ResnetBlock", ResnetBlock(2 * dout, din, time_dim, g, dt, pm)),
                 add("ResnetBlock", ResnetBlock(din, din, time_dim, g, dt, pm)),
-                add("LinearAttentionBlock", LinearAttentionBlock(din, *heads, dt, sp_mesh)),
+                attention(din),
                 add("Upsample", Upsample(din, dt, pm)) if i < len(in_out) - 1 else None,
             ))
         head_dt = None if fp32_head else dt
-        self.final_block = ResnetBlock(2 * dim, dim, None, g, head_dt, pm)
+        self.final_block = ResnetBlock(2 * init_dim, dim, None, g, head_dt, pm)
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
         self.head_dtype = head_dt
 
@@ -660,7 +681,7 @@ class UNet(nn.Module):
         x = self.init_conv(x)
         if self.frame_attention:
             x = self.init_frame_attn(x, frames=frames)
-        if cond is not None:
+        if cond is not None and self.cond_path:
             if null_mask is not None:
                 cond = torch.where(null_mask.reshape(-1, 1, 1, 1), 0.0, cond)
             c = self.emb_conv_0

@@ -59,11 +59,24 @@ _SIZED = {
 _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
 
 
+@dataclasses.dataclass(frozen=True)
+class RawArray:
+    """An array of a dtype numpy lacks (bfloat16) as its shape, dtype name
+    and row-major bytes: what ``msgpack_restore(..., keep_bfloat16=True)``
+    returns for such a leaf, and ``msgpack_serialize`` writes back unchanged
+    (as an ndarray)."""
+
+    shape: tuple
+    dtype: str
+    data: bytes
+
+
 class _Reader:
-    def __init__(self, data: bytes, raw: bool):
+    def __init__(self, data: bytes, raw: bool, keep_bfloat16: bool = False):
         self.data = memoryview(data)
         self.pos = 0
         self.raw = raw  # str values as bytes (flax decodes ndarray payloads so)
+        self.keep_bfloat16 = keep_bfloat16
 
     def take(self, n: int) -> memoryview:
         if self.pos + n > len(self.data):
@@ -95,7 +108,7 @@ class _Reader:
             return self.unpack(*_SCALARS[tag])
         if tag in _FIXEXT:
             code = self.unpack(">b", 1)
-            return _ext(code, bytes(self.take(_FIXEXT[tag])))
+            return _ext(code, bytes(self.take(_FIXEXT[tag])), self.keep_bfloat16)
         if tag in _SIZED:
             kind, fmt = _SIZED[tag]
             n = self.unpack(fmt, struct.calcsize(fmt))
@@ -108,7 +121,7 @@ class _Reader:
             if kind == "map":
                 return self._map(n)
             code = self.unpack(">b", 1)
-            return _ext(code, bytes(self.take(n)))
+            return _ext(code, bytes(self.take(n)), self.keep_bfloat16)
         raise ValueError(f"unsupported msgpack tag 0x{tag:02x} at byte {self.pos - 1}")
 
     def _str(self, n: int):
@@ -123,9 +136,11 @@ class _Reader:
         return out
 
 
-def _ndarray(payload: bytes) -> np.ndarray:
+def _ndarray(payload: bytes, keep_bfloat16: bool = False) -> np.ndarray | RawArray:
     shape, dtype_name, buf = _Reader(payload, raw=True).read()
     name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
+    if name == "bfloat16" and keep_bfloat16:
+        return RawArray(tuple(shape), name, bytes(buf))
     if name == "bfloat16":
         # numpy has no bfloat16: widen the bit pattern to float32 exactly
         bits = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
@@ -133,18 +148,21 @@ def _ndarray(payload: bytes) -> np.ndarray:
     return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
 
 
-def _ext(code: int, payload: bytes):
+def _ext(code: int, payload: bytes, keep_bfloat16: bool = False):
     if code == _EXT_NDARRAY:
-        return _ndarray(payload)
+        return _ndarray(payload, keep_bfloat16)
     if code == _EXT_NPSCALAR:
-        return _ndarray(payload)[()]
+        a = _ndarray(payload, keep_bfloat16)
+        return a if isinstance(a, RawArray) else a[()]
     raise ValueError(f"unsupported msgpack ext type {code}")
 
 
-def msgpack_restore(data: bytes):
+def msgpack_restore(data: bytes, keep_bfloat16: bool = False):
     """Decode Flax msgpack bytes into a tree of dicts, lists, Python scalars
-    and numpy arrays (the arrays are read-only views of ``data``)."""
-    r = _Reader(data, raw=False)
+    and numpy arrays (the arrays are read-only views of ``data``). A
+    bfloat16 array comes back widened to float32, or with
+    ``keep_bfloat16`` as a ``RawArray`` of its own bytes."""
+    r = _Reader(data, raw=False, keep_bfloat16=keep_bfloat16)
     out = r.read()
     if r.pos != len(r.data):
         raise ValueError(f"{len(r.data) - r.pos} trailing bytes after msgpack object")
@@ -231,6 +249,10 @@ def _pack(obj, out: bytearray) -> None:
         _pack_len(out, len(obj), (None, 0xDC, 0xDD), 0x90, 15)
         for v in obj:
             _pack(v, out)
+    elif isinstance(obj, RawArray):
+        payload = bytearray()
+        _pack((tuple(int(d) for d in obj.shape), obj.dtype, obj.data), payload)
+        _pack_ext(out, _EXT_NDARRAY, bytes(payload))
     elif isinstance(obj, (np.ndarray, np.generic)):
         a = np.asarray(obj)
         payload = bytearray()

@@ -64,7 +64,9 @@ def test_port_imports_nothing_of_jax():
                  "generate_mechanics_sets", "train_mechanics", "profile_sampling",
                  "physics.toy", "models.toy", "train_toy", "data.mechanics_generator_gpu",
                  "parallel", "parallel.mesh", "parallel.collectives", "parallel.seq_attention",
-                 "ops.gradients", "models.blocks"):
+                 "ops.gradients", "models.blocks", "models.reference_port",
+                 "import_reference_checkpoint", "export_portable_checkpoint",
+                 "generate_mechanics_data"):
         assert f"physicsinformeddiffusionmodels_tpu_torch.{name}" in report["modules"]
     assert len(report["modules"]) >= 40
     assert report["banned"] == []

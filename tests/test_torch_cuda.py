@@ -1283,3 +1283,95 @@ def test_unet_options_on_the_card_match_the_cpu(cuda, self_condition):
         assert (g is None) == (gc is None)
         if g is not None:
             assert (g - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()
+
+
+# the inverse of each layout transform of models/reference_port.py (by name)
+_REFERENCE_LAYOUT = {
+    "_linear": lambda a: a.T,
+    "_conv3d": lambda a: a.transpose(3, 2, 0, 1)[:, :, None],
+    "_conv2d": lambda a: a.transpose(3, 2, 0, 1),
+    "_pointwise3d": lambda a: a.T[:, :, None, None, None],
+    "_pointwise2d": lambda a: a.T[:, :, None, None],
+    "_conv_transpose3d": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1][:, :, None],
+    "_gamma": lambda a: a.reshape(1, -1, 1, 1, 1),
+    "_copy": lambda a: a,
+}
+
+
+@pytest.mark.cuda
+def test_reference_imported_unet_forward_on_the_card(cuda):
+    """A seeded UNet(dim=32, frame_attention=False) rewritten into the
+    reference Unet3D's layout (with a dead-module tensor) and imported by
+    ``import_reference_state_dict``: its forward on the card is the source
+    model's bit for bit (cuDNN deterministic), within 5e-4 of the CPU's,
+    with K1 (8) and K2 (38) launched."""
+    from physicsinformeddiffusionmodels_tpu_torch.models.reference_port import (
+        import_reference_state_dict, reference_key_map)
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+    from physicsinformeddiffusionmodels_tpu_torch.training.checkpoint import (
+        flax_params_from_torch)
+
+    torch.manual_seed(3)
+    source = UNet(dim=32, channels=2, frame_attention=False)
+    key_map, sd = reference_key_map(32), {"sign_emb_CNN.0.weight": torch.ones(32, 1, 3)}
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            yield from leaves(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)]
+
+    for path, a in leaves(flax_params_from_torch(source.state_dict())["params"]):
+        tkey, transform = key_map[path]
+        sd[tkey] = torch.from_numpy(np.ascontiguousarray(_REFERENCE_LAYOUT[transform.__name__](a)))
+    model = UNet(dim=32, channels=2, frame_attention=False)
+    _, unused = import_reference_state_dict(sd, model, key_map)
+    assert unused == ["sign_emb_CNN.0.weight"]
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 2)).astype(np.float32))
+    t = torch.tensor([0, 9, 50, 99])
+    with torch.no_grad():
+        y_cpu = model(x, t)
+        model, source = model.to(cuda), source.to(cuda)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                        allow_tf32=False):
+            before = (linear_attention_block.launches, group_norm_film_silu.launches)
+            y = model(x.to(cuda), t.to(cuda))
+            launched = (linear_attention_block.launches - before[0],
+                        group_norm_film_silu.launches - before[1])
+            y_source = source(x.to(cuda), t.to(cuda))
+    assert launched == (8, 38)
+    assert torch.equal(y, y_source)
+    assert (y.cpu() - y_cpu).abs().max().item() <= 5e-4
+
+
+@pytest.mark.cuda
+def test_unet_without_linear_attention_on_the_card(cuda):
+    """UNet(dim=32, init_dim=48, use_sparse_linear_attn=False,
+    cond_path=False): the forward within 5e-4 and each gradient within 1e-3
+    of its max, card vs CPU, with no K1 and 38 K2 launched, forward and
+    backward."""
+    from physicsinformeddiffusionmodels_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(0)
+    ref_model = UNet(dim=32, channels=2, init_dim=48, use_sparse_linear_attn=False,
+                     cond_path=False)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    t = torch.tensor([3, 70])
+    out = {}
+    for dev in ("cpu", cuda):
+        model = UNet(dim=32, channels=2, init_dim=48, use_sparse_linear_attn=False,
+                     cond_path=False).to(dev)
+        model.load_state_dict(ref_model.state_dict())
+        counters = (linear_attention_block, group_norm_film_silu)
+        before = [(f.launches, f.backward_launches) for f in counters]
+        y = model(x.to(dev), t.to(dev))
+        grads = torch.autograd.grad((y * dy.to(dev)).sum(), list(model.parameters()))
+        launched = [(f.launches - b[0], f.backward_launches - b[1])
+                    for f, b in zip(counters, before)]
+        out[str(dev)] = y.detach().cpu(), [g.cpu() for g in grads], launched
+    (y_cpu, g_cpu, l_cpu), (y, grads, launched) = out["cpu"], out[str(cuda)]
+    assert launched == [(0, 0), (38, 38)] and l_cpu == [(0, 0), (0, 0)]
+    assert (y - y_cpu).abs().max().item() <= 5e-4
+    for g, gc in zip(grads, g_cpu):
+        assert (g - gc).abs().max().item() <= 1e-3 * gc.abs().max().item()

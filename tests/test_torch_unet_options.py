@@ -156,3 +156,74 @@ def test_build_model_accepts_both_options(bcs, self_condition):
     with torch.no_grad():
         y = model(torch.zeros(1, P, P, 2), torch.zeros(1, dtype=torch.long))
     assert y.shape == (1, P, P, 2) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("kw", [{"init_dim": 12}, {"use_sparse_linear_attn": False},
+                                {"cond_path": False},
+                                {"init_dim": 12, "use_sparse_linear_attn": False,
+                                 "cond_path": False}],
+                         ids=["init_dim", "no_linear_attn", "no_cond_path", "all_three"])
+def test_unet_build_options_match_flax(kw):
+    """``init_dim`` (the init conv, the init frame attention and the cond
+    modules at 12 channels, the first level 12 -> 8, the final block 24 ->
+    8), ``use_sparse_linear_attn=False`` (no LinearAttentionBlock_<i> in the
+    tree) and ``cond_path=False`` (no emb_conv_* or combine_conv): the
+    forward and every gradient against Flax's UNet of the same fields."""
+    _hold(kw, kw, seed=4)
+    model = UNet(dim=DIM, channels=2, dim_mults=MULTS, resnet_groups=GROUPS, **kw)
+    names = [n.split(".")[0] for n in model.state_dict()]
+    assert any(n.startswith("LinearAttentionBlock") for n in names) == kw.get(
+        "use_sparse_linear_attn", True)
+    assert ("emb_conv_0" in names) == ("combine_conv" in names) == kw.get("cond_path", True)
+    assert model.init_conv.Conv_0.out_channels == kw.get("init_dim", DIM)
+
+
+def test_cond_is_ignored_without_the_cond_path():
+    """A UNet built with ``cond_path=False`` ignores ``cond``, as JAX's
+    does: its output with a cond equals Flax's with and its own without."""
+    x, t, _, _ = _case(6)
+    cond = np.random.default_rng(7).standard_normal(x.shape).astype(np.float32)
+    flax_model = FlaxUNet(dim=DIM, channels=2, dim_mults=MULTS, resnet_groups=GROUPS,
+                          cond_path=False)
+    params = _random_params(flax_model, (x, t), 106)
+    ref = np.asarray(flax_model.apply(params, x, t, cond=cond))
+    model = UNet(dim=DIM, channels=2, dim_mults=MULTS, resnet_groups=GROUPS, cond_path=False)
+    model.load_state_dict(torch_state_dict_from_flax(params))
+    with torch.no_grad():
+        y = model(torch.from_numpy(x), torch.from_numpy(t).long(), cond=torch.from_numpy(cond))
+        y0 = model(torch.from_numpy(x), torch.from_numpy(t).long())
+    assert torch.equal(y, y0)
+    np.testing.assert_allclose(y.numpy(), ref, atol=FWD_TOL * np.abs(ref).max(), rtol=0)
+
+
+def test_unconditioned_matches_condpath_free():
+    """JAX's case on the port: with cond=None the output does not depend on
+    the (dead) cond-path parameters."""
+    torch.manual_seed(0)
+    m1, m2 = UNet(dim=DIM, channels=2, cond_path=True), UNet(dim=DIM, channels=2, cond_path=False)
+    m2.load_state_dict({k: v for k, v in m1.state_dict().items()
+                        if not k.startswith(("emb_conv", "combine_conv"))})
+    x = torch.randn(1, P, P, 2, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        torch.testing.assert_close(m1(x, torch.tensor([1])), m2(x, torch.tensor([1])),
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("padding_mode", ["circular", "zeros"])
+def test_circular_padding_shift_equivariance(padding_mode):
+    """JAX's two cases on the port: with circular padding the
+    attention-free UNet commutes with cyclic shifts by a multiple of its
+    total stride (2^3); with zero padding it does not."""
+    torch.manual_seed(0)
+    model = UNet(dim=DIM, channels=2, padding_mode=padding_mode,
+                 use_sparse_linear_attn=False, frame_attention=False)
+    x = torch.randn(1, P, P, 2, generator=torch.Generator().manual_seed(2))
+    t = torch.tensor([5])
+    shift = 8 if padding_mode == "circular" else 4
+    with torch.no_grad():
+        y, y_s = model(x, t), model(torch.roll(x, shift, dims=1), t)
+    diff = (torch.roll(y, shift, dims=1) - y_s).abs().max().item()
+    if padding_mode == "circular":
+        assert diff <= 1e-4
+    else:
+        assert diff > 1e-3
