@@ -79,8 +79,8 @@ The phases run in this order: 1-8, then every other kernel timing (10,
     on after; the card halves read the worker's files;
   * the window: the checks that time nothing run after 19d's timing, the
     last of the main paths', in three kinds of process side by side: this
-    one (19e, 22, 11, then 9b, 9e, 13a, 15c, 15e, 16b, 17a, 17c, 21a-b, 24b,
-    24c, 19b, 19a's checks, 19c), the card lane (this script with
+    one (19e, 22, 11, then 9b, 9e, 13a, 15c, 15e, 16b, 17a, 17c, 21a-b,
+    21d, 24b, 24c, 19b, 19a's checks, 19c), the card lane (this script with
     ``--lane``: 18a, 9f, 13d, 20a, 5, 24a; LANE_CHECKS) and phase 23's two
     ranks with its torchrun
     CLI. The lane and the ranks start after the build and import meanwhile
@@ -192,7 +192,12 @@ waited for its CPU reference.
      JAX's tolerances; (c) one full-width batch (SIMP_FULL: B=64, P=64, 30
      iterations), its fields from the host's exact solve: seconds a batch,
      CG iterations a SIMP iteration, the largest relres, the fields' mean
-     |K u - f| below MECH_DATA_RESIDUAL_MAX. No kernel.
+     |K u - f| below MECH_DATA_RESIDUAL_MAX; (d) one train set in two
+     shards by the ``generate_mechanics_sets`` CLI, ``--start-index 0`` on
+     the card and ``--start-index SHARD_N`` on the host (P=16, 3
+     iterations): the file names, the shard CSVs, the merged scenarios.csv
+     (every index once, in order, the families round-robin) and each
+     field's residual. No kernel.
  22. the UNet's circular padding (``bcs='periodic'``), without and with
      self-conditioning: ``build_model`` at UNet(dim=32, channels=2), 64x64,
      B=OPTIONS_BATCH, seeded weights, 9a's fields; the forward (with an
@@ -457,6 +462,8 @@ TOY_EPOCHS = 2
 SIMP_FAMILIES, SIMP_VF = ("cantilever", "bridge", "double_clamp"), (0.4, 0.5, 0.35)
 SIMP_CARD_ATOL = 2e-4
 SIMP_FULL = dict(batch=64, P=64, n_iter=30)
+# 21d: fields a shard (one train set: a card shard from 0, a host shard after it)
+SHARD_N = 3
 # phase 22: the UNet's circular padding, without and with self-conditioning,
 # UNet(dim=32, channels=2) at 64x64, B=16, seeded weights; card vs CPU (the
 # forward within phase 5's 5e-4, one fp32 step on a periodic Darcy residual
@@ -2568,6 +2575,59 @@ def simp_checks(tmp: Path) -> None:
          binary_agreement_min=f"{min(s[2] for s in stats):.4f}")
 
 
+def shard_check(tmp: Path, dev="cuda") -> None:
+    """Phase 21d (the main process runs it in the window): one train set
+    made of two shards in one root by the ``generate_mechanics_sets`` CLI,
+    ``--start-index 0`` on the card and ``--start-index SHARD_N`` on the
+    host (P=16, 3 iterations); the file names, both shard CSVs, the merged
+    ``scenarios.csv`` (every index once, in order, the families
+    round-robin, each row its shard's) and each field's mean |K u - f|
+    below MECH_DATA_RESIDUAL_MAX."""
+    import torch
+
+    from physicsinformeddiffusionmodels_tpu_torch import generate_mechanics_sets as tsets
+    from physicsinformeddiffusionmodels_tpu_torch.physics.mechanics import (
+        MechanicsResidual, split_mechanics_batch)
+
+    n = SHARD_N
+    ph = phase(f"21d one train set in two shards: {n} fields on the card from index 0, "
+               f"{n} on the host from {n} (P=16, 3 iterations)")
+    root = tmp / "shards"
+    common = ["--root", str(root), "--only", "train", "--n-train", str(n), "--n-iter", "3",
+              "--pixels-per-dim", "16", "--seed", "7"]
+    tsets.main([*common, "--start-index", "0", "--device", str(dev), "--batch", str(n)])
+    tsets.main([*common, "--start-index", str(n), "--device", "host"])
+    out = root / "train" / "fields"
+    names = sorted(q.name for q in out.iterdir())
+    want = sorted([f"{i}.npy" for i in range(2 * n)]
+                  + ["scenarios.csv", "scenarios_0.csv", f"scenarios_{n}.csv"])
+    if names != want:
+        raise AssertionError(f"21d: the set holds {names}")
+
+    def rows(name):
+        lines = (out / name).read_text().splitlines()
+        if lines[0] != "index,family,vf":
+            raise AssertionError(f"21d: {name} starts {lines[0]!r}")
+        return [line.split(",") for line in lines[1:]]
+
+    card, host, merged = rows("scenarios_0.csv"), rows(f"scenarios_{n}.csv"), rows(
+        "scenarios.csv")
+    fams = tsets.IN_DIST_FAMILIES
+    if (merged != card + host or [int(r[0]) for r in merged] != list(range(2 * n))
+            or [r[1] for r in merged] != [fams[i % len(fams)] for i in range(2 * n)]):
+        raise AssertionError(f"21d: shards {card} + {host}, merged {merged}")
+    fields = np.stack([np.load(out / f"{i}.npy") for i in range(2 * n)])
+    mb = split_mechanics_batch(torch.as_tensor(fields, device=dev))
+    rho_e = mb.solution[:, :-1, :-1, 2].reshape(2 * n, -1)
+    res = MechanicsResidual(16, device=dev).residual_from_fields(mb.solution[..., :2], rho_e,
+                                                                 mb.bcs)[0]
+    res_b = res.abs().mean(dim=1)
+    if not torch.isfinite(res_b).all() or res_b.max().item() > MECH_DATA_RESIDUAL_MAX:
+        raise AssertionError(f"21d: the fields' mean |r| up to {res_b.max().item():.3e}")
+    done(ph, files=2 * n, families="/".join(r[1] for r in merged),
+         fields_mean_abs_residual_max=f"{res_b.max().item():.3e}")
+
+
 def simp_phase(tmp: Path, dev, smi: str) -> dict:
     """Phase 21c, the batched SIMP (``data/mechanics_generator_gpu.py``;
     21a-b: ``simp_checks``): one full-width batch (SIMP_FULL) through
@@ -4006,9 +4066,10 @@ def main() -> int:
             lane.start()
             cli23.update(torchrun_cli_start(Path(tmp)))
 
-        # 21a-b, 24b and 24c need nothing of the card lane: here they keep
+        # 21a-b, 21d, 24b and 24c need nothing of the card lane: here they keep
         # the lane, which bounds the window, short
         later += [functools.partial(simp_checks, Path(tmp)),
+                  functools.partial(shard_check, Path(tmp)),
                   functools.partial(reference_import_check, Path(tmp)),
                   functools.partial(plain_options_phase, dev, refs)]
         mech_k1, mech_k2, mech_sps = mechanics_phase(Path(tmp), dev, smi, k1_args, k2_args,

@@ -96,10 +96,17 @@ def derivative_matrix(n: int, spacing: float, deriv: int, acc: int = 2,
 
 
 class StencilGradients:
-    """First and second derivatives of [..., H, W] fields along each axis.
+    """The five image-derivative operators the physics layers use (d_d0,
+    d_d1, d_d00, d_d11, d_d01) on [..., H, W] fields:
+
+      d/d0   : D0 f          (contraction over H)
+      d/d1   : f D1^T        (contraction over W)
+      d/d0d1 : D0 f D1^T
 
     ``Dc0``/``Dc1`` stack the first- and second-derivative operators of one
-    axis ([2N, N]), so one contraction per axis gives both orders.
+    axis ([2N, N]), so one contraction per axis gives both orders
+    (``first_second_pair``); ``D0_1``, ``D0_2``, ``D1_1`` and ``D1_2`` are
+    views of their halves.
     """
 
     def __init__(self, h: int, w: int | None = None, d0: float = 1.0, d1: float = 1.0,
@@ -109,18 +116,61 @@ class StencilGradients:
         self.Dc0 = torch.cat([mk(h, d0, 1), mk(h, d0, 2)], dim=0)
         self.Dc1 = torch.cat([mk(w, d1, 1), mk(w, d1, 2)], dim=0)
 
+    @property
+    def D0_1(self) -> torch.Tensor:
+        return self.Dc0[:self.Dc0.shape[1]]
+
+    @property
+    def D0_2(self) -> torch.Tensor:
+        return self.Dc0[self.Dc0.shape[1]:]
+
+    @property
+    def D1_1(self) -> torch.Tensor:
+        return self.Dc1[:self.Dc1.shape[1]]
+
+    @property
+    def D1_2(self) -> torch.Tensor:
+        return self.Dc1[self.Dc1.shape[1]:]
+
+    @staticmethod
+    def _apply_axis0(D: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("ij,...jw->...iw", D, f)
+
+    @staticmethod
+    def _apply_axis1(D: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("ij,...hj->...hi", D, f)
+
     def d_d0(self, f: torch.Tensor) -> torch.Tensor:
         """The first derivative along H of [..., H, W]."""
-        return torch.einsum("ij,...jw->...iw", self.Dc0[:self.Dc0.shape[1]], f)
+        return self._apply_axis0(self.D0_1, f)
 
     def d_d1(self, f: torch.Tensor) -> torch.Tensor:
         """The first derivative along W of [..., H, W]."""
-        return torch.einsum("ij,...hj->...hi", self.Dc1[:self.Dc1.shape[1]], f)
+        return self._apply_axis1(self.D1_1, f)
+
+    def d_d00(self, f: torch.Tensor) -> torch.Tensor:
+        """The second derivative along H of [..., H, W]."""
+        return self._apply_axis0(self.D0_2, f)
+
+    def d_d11(self, f: torch.Tensor) -> torch.Tensor:
+        """The second derivative along W of [..., H, W]."""
+        return self._apply_axis1(self.D1_2, f)
+
+    def d_d01(self, f: torch.Tensor) -> torch.Tensor:
+        """The mixed derivative, along H then W, of [..., H, W]."""
+        return self._apply_axis1(self.D1_1, self._apply_axis0(self.D0_1, f))
 
     def first_second_pair(self, f: torch.Tensor):
         """(d_d0, d_d1, d_d00, d_d11) of ``f`` in two contractions."""
         n0 = self.Dc0.shape[1]
         n1 = self.Dc1.shape[1]
-        a0 = torch.einsum("ij,...jw->...iw", self.Dc0, f)
-        a1 = torch.einsum("ij,...hj->...hi", self.Dc1, f)
+        a0 = self._apply_axis0(self.Dc0, f)
+        a1 = self._apply_axis1(self.Dc1, f)
         return a0[..., :n0, :], a1[..., :n1], a0[..., n0:, :], a1[..., n1:]
+
+    def __call__(self, f: torch.Tensor, mode: str):
+        """``mode`` 'all': (d_d0, d_d1, d_d00, d_d11, d_d01); else the
+        operator of that name."""
+        if mode == "all":
+            return self.d_d0(f), self.d_d1(f), self.d_d00(f), self.d_d11(f), self.d_d01(f)
+        return getattr(self, mode)(f)

@@ -58,6 +58,10 @@ class DarcyResidual:
         self.quad_weights = torch.as_tensor(trapezoidal_weights(P), dtype=torch.float32,
                                             device=device)
 
+    @property
+    def gov_eqs(self) -> str:
+        return "darcy"
+
     def __call__(self, x0_pred: torch.Tensor) -> PhysicsTerms:
         return PhysicsTerms(residual=self.residual(x0_pred))
 
@@ -110,9 +114,8 @@ class DarcyResidual:
         it, never the dense [3HW, HW] Jacobian.
         """
         g = self.grads
-        n0, n1 = g.Dc0.shape[1], g.Dc1.shape[1]
-        D0, D00 = g.Dc0[:n0], g.Dc0[n0:]
-        D1, D11 = g.Dc1[:n1], g.Dc1[n1:]
+        D0, D00, D1, D11 = g.D0_1, g.D0_2, g.D1_1, g.D1_2
+        n0, n1 = D0.shape[0], D1.shape[0]
         K_d0, K_d1, _, _ = g.first_second_pair(K)
         colvals = -K[..., None] * D00[None, :, None, :] - K_d0[..., None] * D0[None, :, None, :]
         diag_extra = (-K * torch.diagonal(D11)[None, None, :]

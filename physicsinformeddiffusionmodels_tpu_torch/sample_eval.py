@@ -18,7 +18,8 @@ A mechanics run sweeps ``test_level_1`` and ``test_level_2`` (the first
 ``rel_CE_error.csv``, ``rel_vf_error.csv``, ``fm_error.csv`` and
 ``sample_statistics.csv`` to ``<out>/<level>/``, with its first batch's
 per-sample CSVs. The default ``--out`` is a fresh
-``trained_models/<run name>/evaluation_torch[_i]``. The correction,
+``<model dir>/evaluation[_i]``, as the JAX ``sample_eval.py``'s (which
+``scripts/diagnose_ood_tail.py`` reads). The correction,
 thresholding and guidance options override the run's config, as in the JAX
 ``sample_eval.py`` (the corrections are Darcy's alone). A run trained with
 ``residual_grad_guidance`` samples with classifier-free guidance on its
@@ -221,8 +222,7 @@ def evaluate(model_dir: str | Path, no_samples: int = 3, compute_dtype: str | No
         print(f"WARNING: correction_mode={cfg.correction_mode!r} is darcy-only; running "
               "UNCORRECTED and recording 'none'.", file=sys.stderr)
         cfg.correction_mode, cfg.M_correction, cfg.N_correction = "none", 0, 0
-    out_dir = Path(out) if out is not None else _fresh_dir(
-        Path("trained_models") / cfg.name / "evaluation_torch")
+    out_dir = Path(out) if out is not None else _fresh_dir(Path(model_dir) / "evaluation")
     if main:
         out_dir.mkdir(parents=True, exist_ok=True)
         print(f"Checkpoint step {ckpt_step} from {model_dir}; sampling on {dev}")

@@ -111,3 +111,45 @@ def test_residual_on_random_fields_matches_jax(reverse_d1, fd_acc):
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got, ref, atol=2e-6 * scale, rtol=0)
     np.testing.assert_array_equal(got[:, :, 1:] == 0, ref[:, :, 1:] == 0)
+
+
+OPERATORS = ("d_d0", "d_d1", "d_d00", "d_d11", "d_d01")
+MATRICES = ("D0_1", "D0_2", "D1_1", "D1_2")
+
+
+@pytest.mark.parametrize("fd_acc,periodic", [(2, False), (4, False), (2, True), (4, True)])
+def test_stencil_gradients_every_operator_and_mode_match_jax(fd_acc, periodic):
+    """Each operator matrix, each derivative and each ``__call__`` mode of
+    ``StencilGradients`` on a seeded [2, 3, H, W] field, with Darcy's
+    spacing (negative along W, ``reverse_d1``) and H != W: within 1e-6
+    of the largest value of the JAX result (fp32 contractions summed in
+    another order)."""
+    h, w = 12, 16
+    x = np.random.default_rng(7).standard_normal((2, 3, h, w)).astype(np.float32)
+    kw = dict(d0=1.0 / (h - 1), d1=-1.0 / (w - 1), fd_acc=fd_acc, periodic=periodic)
+    ours, ref = tfd.StencilGradients(h, w, **kw), jfd.StencilGradients(h, w, **kw)
+    for name in MATRICES:
+        np.testing.assert_array_equal(getattr(ours, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert ours.D0_2.data_ptr() == ours.Dc0.data_ptr() + h * h * 4  # a view of Dc0
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+
+    def close(got, want, what):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max(), err_msg=what)
+
+    for name in OPERATORS:
+        close(getattr(ours, name)(xt), getattr(ref, name)(xj), name)
+        close(ours(xt, name), ref(xj, name), f"mode {name}")
+    got_all, ref_all = ours(xt, "all"), ref(xj, "all")
+    assert len(got_all) == len(ref_all) == 5
+    for name, got, want in zip(OPERATORS, got_all, ref_all):
+        close(got, want, f"mode all: {name}")
+    for name, got, want in zip(OPERATORS, ours.first_second_pair(xt),
+                               ref.first_second_pair(xj)):
+        close(got, want, f"first_second_pair: {name}")
+
+
+def test_darcy_gov_eqs_matches_jax():
+    assert DarcyResidual(pixels_per_dim=8).gov_eqs == JaxDarcy(pixels_per_dim=8).gov_eqs
